@@ -1,0 +1,7 @@
+"""The port's model substrate: the dense attention decoder of the serving
+path, in PyTorch, with the reference's parameter layouts."""
+
+from .config import ModelConfig
+from .model import Model
+
+__all__ = ["ModelConfig", "Model"]
