@@ -5,18 +5,21 @@
 // function decode_attention_pallas (body `_kernel`).  That kernel carried the
 // online-softmax state (m, l, acc) from one cache block to the next along a
 // sequential grid axis.  Blocks on Hopper run in no order, so here one block
-// owns a (batch row, KV head) pair and walks the cache in a loop.
+// owns a (batch row, KV head) pair, its eight warps walk the cache in
+// interleaved 32-key tiles, each with its own online-softmax state, and the
+// eight partial states are merged in shared memory at the end.
 //
 // What bounds it on the H100: bytes.  Each cache element is read once and
 // feeds 2·g flops (g = query heads per KV head; g = 1 for orloj_gpt), far
 // below the ~20 float32 flops per byte at which the card stops waiting on
-// memory.  What the design does about it: every K/V element is loaded from
-// device memory exactly once, with neighbouring threads on neighbouring
-// addresses; the group's queries, the scores and the running (m, l, acc) stay
-// in shared memory; and the walk stops at valid_len[b], so that cache slots
-// that were never written are never read.  The ragged tail of S is masked in
-// the kernel, so any cache length is served.  Left for later: 16-byte
-// vector loads, cp.async/TMA double buffering, and a split of S across blocks
+// memory.  What the design does about it: every K/V element is read from
+// device memory exactly once, with 16-byte loads for K and whole 128-byte
+// rows per warp for V; no barrier sits inside the walk, so the eight warps'
+// loads overlap; one lane owns one key, so a tile's scores take one pass
+// and two warp reductions; and the walk stops at valid_len[b], so cache
+// slots that were never written are never read.  The ragged tail of S is
+// masked in the kernel, so any cache length is served.  Left for later:
+// cp.async/TMA prefetch of the next tile, and a split of S across blocks
 // (flash-decoding) for batches whose B·KV blocks cannot fill 132 SMs.
 
 #include <cmath>
@@ -27,170 +30,202 @@
 namespace repro_torch {
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kBlockK = 32;  // cache positions per tile
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
 
-size_t decode_shared_bytes(int g, int hd) {
-  const size_t floats = static_cast<size_t>(g) * hd      // q
-                        + static_cast<size_t>(kBlockK) * (hd + 1)  // K tile, padded
-                        + static_cast<size_t>(kBlockK) * hd        // V tile
-                        + static_cast<size_t>(g) * kBlockK         // scores / probabilities
-                        + static_cast<size_t>(g) * hd              // acc
-                        + 3 * static_cast<size_t>(g);              // m, l, alpha
-  return floats * sizeof(float);
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 
-template <typename T>
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// G query heads of the group are handled per pass over the cache (G divides
+// the group size; the host picks 4, 2 or 1).
+template <typename T, int HD, int G>
 __global__ void __launch_bounds__(kThreads)
-    decode_attention_kernel(const T* __restrict__ q,        // (B, H, hd)
-                            const T* __restrict__ k_cache,  // (B, KV, S, hd)
-                            const T* __restrict__ v_cache,  // (B, KV, S, hd)
+    decode_attention_kernel(const T* __restrict__ q,        // (B, H, HD)
+                            const T* __restrict__ k_cache,  // (B, KV, S, HD)
+                            const T* __restrict__ v_cache,  // (B, KV, S, HD)
                             const int* __restrict__ valid_len,  // (B,)
-                            T* __restrict__ out,            // (B, H, hd)
-                            int H, int KV, int S, int hd, float sm_scale) {
-  extern __shared__ float smem[];
+                            T* __restrict__ out,            // (B, H, HD)
+                            int H, int KV, int S, float sm_scale) {
+  constexpr int DPL = HD / 32;  // output dims each lane owns: lane*DPL ...
+  __shared__ float q_s[G][HD];
+  __shared__ float m_s[kWarps][G];
+  __shared__ float l_s[kWarps][G];
+  __shared__ float acc_s[kWarps][G][HD];
+
   const int g = H / KV;
   const int c = blockIdx.x;  // KV head
   const int b = blockIdx.y;  // batch row
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int ks = hd + 1;  // padded K row: the dot products hit distinct banks
-
-  float* q_s = smem;
-  float* k_s = q_s + g * hd;
-  float* v_s = k_s + kBlockK * ks;
-  float* p_s = v_s + kBlockK * hd;
-  float* acc_s = p_s + g * kBlockK;
-  float* m_s = acc_s + g * hd;
-  float* l_s = m_s + g;
-  float* alpha_s = l_s + g;
-
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
   const int n = min(max(valid_len[b], 0), S);
-  const size_t q_base = (static_cast<size_t>(b) * H + static_cast<size_t>(c) * g) * hd;
-  const size_t kv_base = (static_cast<size_t>(b) * KV + c) * static_cast<size_t>(S) * hd;
+  const size_t kv_base = (static_cast<size_t>(b) * KV + c) * static_cast<size_t>(S) * HD;
+  const T* kb = k_cache + kv_base;
+  const T* vb = v_cache + kv_base;
 
-  for (int i = tid; i < g * hd; i += kThreads) {
-    q_s[i] = to_float(q[q_base + i]);
-    acc_s[i] = 0.f;
-  }
-  for (int j = tid; j < g; j += kThreads) {
-    m_s[j] = kNegInf;
-    l_s[j] = 0.f;
-  }
-
-  for (int t0 = 0; t0 < n; t0 += kBlockK) {
-    const int nt = min(kBlockK, n - t0);
-    __syncthreads();  // the previous tile is consumed; q_s is ready
-    for (int i = tid; i < kBlockK * hd; i += kThreads) {
-      const int t = i / hd;
-      const int d = i - t * hd;
-      float kx = 0.f, vx = 0.f;
-      if (t < nt) {
-        const size_t off = kv_base + static_cast<size_t>(t0 + t) * hd + d;
-        kx = to_float(k_cache[off]);
-        vx = to_float(v_cache[off]);
-      }
-      k_s[t * ks + d] = kx;
-      v_s[t * hd + d] = vx;
-    }
+  for (int j0 = 0; j0 < g; j0 += G) {
+    const size_t q_base = (static_cast<size_t>(b) * H + static_cast<size_t>(c) * g + j0) * HD;
+    __syncthreads();  // the previous pass is done with q_s and acc_s
+    for (int i = threadIdx.x; i < G * HD; i += kThreads) q_s[i / HD][i % HD] = to_float(q[q_base + i]);
     __syncthreads();
 
-    // Scores of every (query head of the group, cache position of the tile).
-    for (int i = tid; i < g * kBlockK; i += kThreads) {
-      const int j = i / kBlockK;
-      const int t = i - j * kBlockK;
-      float s = kNegInf;
-      if (t < nt) {
-        const float* qr = q_s + j * hd;
-        const float* kr = k_s + t * ks;
-        float dot = 0.f;
-        for (int d = 0; d < hd; ++d) dot = fmaf(qr[d], kr[d], dot);
-        s = dot * sm_scale;
-      }
-      p_s[i] = s;
+    float m[G], l[G], acc[G][DPL];
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      m[j] = kNegInf;
+      l[j] = 0.f;
+#pragma unroll
+      for (int e = 0; e < DPL; ++e) acc[j][e] = 0.f;
     }
-    __syncthreads();
 
-    // Online-softmax update, one warp per query head.
-    for (int j = warp; j < g; j += kWarps) {
-      float* pr = p_s + j * kBlockK;
-      float mx = kNegInf;
-      for (int t = lane; t < kBlockK; t += 32) mx = fmaxf(mx, pr[t]);
-      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_prev = m_s[j];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int t = lane; t < kBlockK; t += 32) {
-        const float p = t < nt ? expf(pr[t] - m_new) : 0.f;
-        pr[t] = p;
-        sum += p;
+    for (int t0 = warp * 32; t0 < n; t0 += kWarps * 32) {
+      const int nt = min(32, n - t0);
+      // This lane's key: its scores against every query head of the pass.
+      float s[G];
+#pragma unroll
+      for (int j = 0; j < G; ++j) s[j] = 0.f;
+      if (lane < nt) {
+        const T* kr = kb + static_cast<size_t>(t0 + lane) * HD;
+#pragma unroll
+        for (int d = 0; d < HD; d += 4) {
+          const float4 kx = load4(kr + d);
+#pragma unroll
+          for (int j = 0; j < G; ++j) {
+            s[j] = fmaf(q_s[j][d], kx.x, s[j]);
+            s[j] = fmaf(q_s[j][d + 1], kx.y, s[j]);
+            s[j] = fmaf(q_s[j][d + 2], kx.z, s[j]);
+            s[j] = fmaf(q_s[j][d + 3], kx.w, s[j]);
+          }
+        }
       }
-      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      float p[G];
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        const float sj = lane < nt ? s[j] * sm_scale : kNegInf;
+        const float m_new = fmaxf(m[j], warp_max(sj));
+        p[j] = lane < nt ? expf(sj - m_new) : 0.f;
+        const float alpha = expf(m[j] - m_new);
+        l[j] = alpha * l[j] + warp_sum(p[j]);
+        m[j] = m_new;
+#pragma unroll
+        for (int e = 0; e < DPL; ++e) acc[j][e] *= alpha;
+      }
+      // acc += p·V: key u's probabilities come from lane u; the warp reads
+      // V row u whole, each lane its DPL dims.
+      for (int u = 0; u < nt; ++u) {
+        const T* vr = vb + static_cast<size_t>(t0 + u) * HD + lane * DPL;
+        float vx[DPL];
+#pragma unroll
+        for (int e = 0; e < DPL; ++e) vx[e] = to_float(vr[e]);
+#pragma unroll
+        for (int j = 0; j < G; ++j) {
+          const float pu = __shfl_sync(0xffffffffu, p[j], u);
+#pragma unroll
+          for (int e = 0; e < DPL; ++e) acc[j][e] = fmaf(pu, vx[e], acc[j][e]);
+        }
+      }
+    }
+
+    // Merge the warps' partial states.  A warp that saw no key has m = -1e30
+    // and l = acc = 0, so it adds nothing; valid_len == 0 leaves every row 0.
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
       if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        alpha_s[j] = alpha;
-        l_s[j] = alpha * l_s[j] + sum;
-        m_s[j] = m_new;
+        m_s[warp][j] = m[j];
+        l_s[warp][j] = l[j];
       }
+#pragma unroll
+      for (int e = 0; e < DPL; ++e) acc_s[warp][j][lane * DPL + e] = acc[j][e];
     }
     __syncthreads();
-
-    // acc = alpha·acc + p·V
-    for (int i = tid; i < g * hd; i += kThreads) {
-      const int j = i / hd;
-      const int d = i - j * hd;
-      const float* pr = p_s + j * kBlockK;
-      float a = acc_s[i] * alpha_s[j];
-      for (int t = 0; t < nt; ++t) a = fmaf(pr[t], v_s[t * hd + d], a);
-      acc_s[i] = a;
+    for (int i = threadIdx.x; i < G * HD; i += kThreads) {
+      const int j = i / HD;
+      const int d = i % HD;
+      float mx = kNegInf;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, m_s[w][j]);
+      float num = 0.f, den = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const float f = expf(m_s[w][j] - mx);
+        num = fmaf(f, acc_s[w][j][d], num);
+        den = fmaf(f, l_s[w][j], den);
+      }
+      out[q_base + i] = from_float<T>(num / fmaxf(den, 1e-30f));
     }
-  }
-  __syncthreads();
-
-  // valid_len == 0 leaves l = 0 and acc = 0: the row comes out as zeros.
-  for (int i = tid; i < g * hd; i += kThreads) {
-    const int j = i / hd;
-    out[q_base + i] = from_float<T>(acc_s[i] / fmaxf(l_s[j], 1e-30f));
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, const int* valid_len,
-                   void* out, int B, int H, int KV, int S, int hd, cudaStream_t stream) {
-  const size_t smem = decode_shared_bytes(H / KV, hd);
-  cudaError_t err = allow_shared_bytes(decode_attention_kernel<T>, smem);
-  if (err != cudaSuccess) return err;
+template <typename T, int HD>
+cudaError_t launch(const void* q, const void* k, const void* v, const int* valid_len, void* out,
+                   int B, int H, int KV, int S, cudaStream_t stream) {
   const dim3 grid(KV, B);
-  decode_attention_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      valid_len, static_cast<T*>(out), H, KV, S, hd, 1.f / std::sqrt(static_cast<float>(hd)));
+  const int g = H / KV;
+  const float scale = 1.f / std::sqrt(static_cast<float>(HD));
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  T* ot = static_cast<T*>(out);
+  if (g % 4 == 0)
+    decode_attention_kernel<T, HD, 4><<<grid, kThreads, 0, stream>>>(qt, kt, vt, valid_len, ot, H,
+                                                                      KV, S, scale);
+  else if (g % 2 == 0)
+    decode_attention_kernel<T, HD, 2><<<grid, kThreads, 0, stream>>>(qt, kt, vt, valid_len, ot, H,
+                                                                      KV, S, scale);
+  else
+    decode_attention_kernel<T, HD, 1><<<grid, kThreads, 0, stream>>>(qt, kt, vt, valid_len, ot, H,
+                                                                      KV, S, scale);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v, const int* valid_len,
+                        void* out, int B, int H, int KV, int S, cudaStream_t stream) {
+  switch (hd) {
+    case 32:
+      return launch<T, 32>(q, k, v, valid_len, out, B, H, KV, S, stream);
+    case 64:
+      return launch<T, 64>(q, k, v, valid_len, out, B, H, KV, S, stream);
+    case 128:
+      return launch<T, 128>(q, k, v, valid_len, out, B, H, KV, S, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 }  // namespace repro_torch
 
-// Shared memory (bytes) one block needs; the wrapper refuses shapes above the
-// card's 227 KB.
-extern "C" long long decode_attention_shared_bytes(int g, int hd) {
-  return static_cast<long long>(repro_torch::decode_shared_bytes(g, hd));
-}
-
 // q: (B, H, hd); k_cache, v_cache: (B, KV, S, hd), all contiguous, of the
-// storage type `dtype`; valid_len: (B,) int32; out: (B, H, hd).  Launches on
-// `stream` and returns cudaGetLastError() (0 when the launch was accepted).
-extern "C" int decode_attention_launch(const void* q, const void* k_cache,
-                                       const void* v_cache, const int* valid_len,
-                                       void* out, int dtype, int B, int H, int KV,
-                                       int S, int hd, void* stream) {
+// storage type `dtype`; valid_len: (B,) int32; out: (B, H, hd).  hd must be
+// 32, 64 or 128.  Launches on `stream` and returns cudaGetLastError() (0 when
+// the launch was accepted).
+extern "C" int decode_attention_launch(const void* q, const void* k_cache, const void* v_cache,
+                                       const int* valid_len, void* out, int dtype, int B, int H,
+                                       int KV, int S, int hd, void* stream) {
   using namespace repro_torch;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || KV <= 0 || H % KV != 0 || S <= 0 || hd <= 0) return cudaErrorInvalidValue;
+  if (B <= 0 || KV <= 0 || H % KV != 0 || S <= 0) return cudaErrorInvalidValue;
   if (dtype == kFloat32)
-    return launch<float>(q, k_cache, v_cache, valid_len, out, B, H, KV, S, hd, s);
+    return dispatch_hd<float>(hd, q, k_cache, v_cache, valid_len, out, B, H, KV, S, s);
   if (dtype == kBFloat16)
-    return launch<__nv_bfloat16>(q, k_cache, v_cache, valid_len, out, B, H, KV, S, hd, s);
+    return dispatch_hd<__nv_bfloat16>(hd, q, k_cache, v_cache, valid_len, out, B, H, KV, S, s);
   return cudaErrorInvalidValue;
 }

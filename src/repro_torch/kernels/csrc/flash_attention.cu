@@ -6,7 +6,7 @@
 // flash_attention_pallas (body `_kernel`).  That kernel carried the
 // online-softmax state (m, l, acc) across key blocks along the innermost,
 // sequential grid axis.  Blocks on Hopper run in no order, so here one
-// block owns a (batch row, head, 32-query tile) and loops over the key tiles
+// block owns a (batch row, head, 64-query tile) and loops over the key tiles
 // itself; the state lives in registers.  The wrapper of the TPU kernel
 // padded S up to the tile on the host; here the ragged tail of S is masked
 // in the kernel and nothing is padded.
@@ -16,13 +16,16 @@
 // loaded element, above the ~20 float32 flops per byte at which the card
 // stops waiting on memory; and float32 has no tensor-core path, so the
 // ceiling is the 67 TFLOP/s of the SIMT cores.  What the design does about
-// it: each K/V tile is loaded once into shared memory and reused by all 32
-// query rows of the block; rows are padded so that the dot products hit
-// distinct banks; four threads share a query row, so the row statistics need
-// two warp shuffles and no barrier; and key tiles that the causal, window
-// and length masks remove entirely are never visited.  Left for later:
-// wgmma on bf16 tiles, TMA loads into a ring of shared-memory stages, and
-// a persistent schedule over tiles.
+// it: each K/V tile is loaded once into shared memory and reused by all 64
+// query rows of the block, and the next tile's loads are in flight while
+// the current one is computed on; each thread computes a 2-row by 8-key block of
+// scores and a 2-row by hd/4 block of the output, so that one shared-memory
+// load feeds four to eight multiply-adds (K is stored transposed and V in
+// 16-byte chunks, read with 16-byte loads, without bank conflicts); four
+// threads share a query row, so the row statistics need two warp shuffles
+// and no barrier; and key tiles that the causal, window and length masks
+// remove entirely are never visited.  Left for later: wgmma on bf16 tiles,
+// TMA loads into a ring of shared-memory stages, and a persistent schedule.
 
 #include <cmath>
 #include <cstddef>
@@ -33,17 +36,20 @@ namespace repro_torch {
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kBlockQ = 32;                    // query rows per block
-constexpr int kBlockK = 32;                    // keys per tile
-constexpr int kPerRow = kThreads / kBlockQ;    // threads sharing one query row
-constexpr int kCols = kBlockK / kPerRow;       // scores each thread owns per tile
+constexpr int kBlockQ = 64;                 // query rows per block
+constexpr int kBlockK = 32;                 // keys per tile
+constexpr int kPerRow = 4;                  // threads sharing a query row
+constexpr int kRowGroups = kThreads / kPerRow;  // 32: thread rows r and r + 32
+constexpr int kCols = kBlockK / kPerRow;    // 8 consecutive keys per thread
+constexpr int kKT = kBlockK + 4;            // row of the transposed K tile (16-byte aligned)
+constexpr int kPS = kBlockK + 1;            // row of the probability tile
 
 template <int HD>
 constexpr size_t flash_shared_bytes() {
-  return (static_cast<size_t>(kBlockQ) * (HD + 1)      // Q tile, padded
-          + static_cast<size_t>(kBlockK) * (HD + 1)    // K tile, padded
-          + static_cast<size_t>(kBlockK) * HD          // V tile
-          + static_cast<size_t>(kBlockQ) * (kBlockK + 1)) *  // probabilities, padded
+  return (static_cast<size_t>(kBlockQ) * (HD + 1)  // Q tile, padded rows
+          + static_cast<size_t>(HD) * kKT          // K tile, transposed
+          + static_cast<size_t>(kBlockK) * HD      // V tile
+          + static_cast<size_t>(kBlockQ) * kPS) *  // probabilities
          sizeof(float);
 }
 
@@ -60,22 +66,24 @@ __global__ void __launch_bounds__(kThreads)
                            T* __restrict__ out,       // (B, H, S, HD), contiguous
                            int H, int KV, int S, Strides sq, Strides sk, Strides sv,
                            int causal, int window, float sm_scale) {
-  extern __shared__ float smem[];
   constexpr int QS = HD + 1;
-  constexpr int PS = kBlockK + 1;
-  float* q_s = smem;
-  float* k_s = q_s + kBlockQ * QS;
-  float* v_s = k_s + kBlockK * QS;
-  float* p_s = v_s + kBlockK * HD;
+  constexpr int NCH = HD / (4 * kPerRow);  // 16-byte chunks of the output each thread owns
+  constexpr int LPT = kBlockK * HD / kThreads;  // K (and V) elements each thread loads per tile
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* q_s = smem;                    // [kBlockQ][QS]
+  float* kt_s = q_s + kBlockQ * QS;     // [HD][kKT]: kt_s[d * kKT + t] = K[t][d]
+  float* v_s = kt_s + HD * kKT;         // [kBlockK][HD]
+  float* p_s = v_s + kBlockK * HD;      // [kBlockQ][kPS]
 
   const int q0 = blockIdx.x * kBlockQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / (H / KV);
   const int tid = threadIdx.x;
-  const int row = tid / kPerRow;  // query row of the tile this thread works on
-  const int sub = tid % kPerRow;  // which of the row's threads
-  const int qpos = q0 + row;
+  const int rg = tid / kPerRow;  // this thread's rows: rg and rg + kRowGroups
+  const int sub = tid % kPerRow;
+  const int qpos[2] = {q0 + rg, q0 + rg + kRowGroups};
 
   const T* qb = q + b * sq.b + h * sq.h;
   const T* kb = k + b * sk.b + kvh * sk.h;
@@ -94,83 +102,142 @@ __global__ void __launch_bounds__(kThreads)
   int k_begin = 0;
   if (window > 0) k_begin = max(0, q0 - window + 1) / kBlockK * kBlockK;
 
-  float acc[HD / kPerRow];
+  float acc[2][NCH][4];
+  float m[2], l[2];
 #pragma unroll
-  for (int u = 0; u < HD / kPerRow; ++u) acc[u] = 0.f;
-  float m = kNegInf;
-  float l = 0.f;
+  for (int r = 0; r < 2; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) acc[r][c][0] = acc[r][c][1] = acc[r][c][2] = acc[r][c][3] = 0.f;
+  }
 
-  for (int k0 = k_begin; k0 < k_end; k0 += kBlockK) {
-    __syncthreads();  // the previous tile is consumed; q_s is ready
-    for (int i = tid; i < kBlockK * HD; i += kThreads) {
+  // The next K/V tile is loaded into registers while this one is computed
+  // on, so the loads' latency hides behind the multiply-adds.
+  float k_next[LPT], v_next[LPT];
+  auto load_tile = [&](int k0) {
+#pragma unroll
+    for (int j = 0; j < LPT; ++j) {
+      const int i = tid + j * kThreads;
       const int t = i / HD;
       const int d = i - t * HD;
       const bool in = k0 + t < k_end;
-      k_s[t * QS + d] = in ? to_float(kb[(k0 + t) * sk.s + d]) : 0.f;
-      v_s[t * HD + d] = in ? to_float(vb[(k0 + t) * sv.s + d]) : 0.f;
+      k_next[j] = in ? to_float(kb[(k0 + t) * sk.s + d]) : 0.f;
+      v_next[j] = in ? to_float(vb[(k0 + t) * sv.s + d]) : 0.f;
+    }
+  };
+  if (k_begin < k_end) load_tile(k_begin);
+
+  for (int k0 = k_begin; k0 < k_end; k0 += kBlockK) {
+    __syncthreads();  // the previous tile is consumed; q_s is ready
+#pragma unroll
+    for (int j = 0; j < LPT; ++j) {
+      const int i = tid + j * kThreads;
+      const int t = i / HD;
+      const int d = i - t * HD;
+      kt_s[d * kKT + t] = k_next[j];
+      v_s[t * HD + d] = v_next[j];
     }
     __syncthreads();
+    if (k0 + kBlockK < k_end) load_tile(k0 + kBlockK);
 
-    // This thread's scores: row `row`, keys sub, sub + kPerRow, ...
-    float s[kCols];
+    // Scores of rows (rg, rg + 32) against keys sub*8 ... sub*8 + 7.
+    float s[2][kCols];
 #pragma unroll
-    for (int u = 0; u < kCols; ++u) s[u] = 0.f;
-    const float* qr = q_s + row * QS;
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int u = 0; u < kCols; ++u) s[r][u] = 0.f;
+    const float* q0r = q_s + rg * QS;
+    const float* q1r = q_s + (rg + kRowGroups) * QS;
 #pragma unroll 4
     for (int d = 0; d < HD; ++d) {
-      const float qd = qr[d];
+      const float4 ka = *reinterpret_cast<const float4*>(kt_s + d * kKT + sub * kCols);
+      const float4 kb4 = *reinterpret_cast<const float4*>(kt_s + d * kKT + sub * kCols + 4);
+      const float kd[kCols] = {ka.x, ka.y, ka.z, ka.w, kb4.x, kb4.y, kb4.z, kb4.w};
+      const float a0 = q0r[d], a1 = q1r[d];
 #pragma unroll
-      for (int u = 0; u < kCols; ++u) s[u] = fmaf(qd, k_s[(sub + u * kPerRow) * QS + d], s[u]);
+      for (int u = 0; u < kCols; ++u) {
+        s[0][u] = fmaf(a0, kd[u], s[0][u]);
+        s[1][u] = fmaf(a1, kd[u], s[1][u]);
+      }
     }
-    float mx = kNegInf;
-#pragma unroll
-    for (int u = 0; u < kCols; ++u) {
-      const int kpos = k0 + sub + u * kPerRow;
-      bool ok = kpos < k_end;
-      if (causal) ok = ok && kpos <= qpos;
-      if (window > 0) ok = ok && kpos > qpos - window;
-      s[u] = ok ? s[u] * sm_scale : kNegInf;
-      mx = fmaxf(mx, s[u]);
-    }
-    // The row's kPerRow threads are neighbouring lanes of one warp.
-#pragma unroll
-    for (int o = 1; o < kPerRow; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-    const float m_new = fmaxf(m, mx);
-    float sum = 0.f;
-    float* pr = p_s + row * PS;
-#pragma unroll
-    for (int u = 0; u < kCols; ++u) {
-      // A masked key gives exactly 0, also while the whole row is masked so
-      // far (m_new == kNegInf would make exp(0) = 1).
-      const float p = s[u] > 0.5f * kNegInf ? expf(s[u] - m_new) : 0.f;
-      pr[sub + u * kPerRow] = p;
-      sum += p;
-    }
-#pragma unroll
-    for (int o = 1; o < kPerRow; o <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    const float alpha = expf(m - m_new);
-    l = alpha * l + sum;
-    m = m_new;
-    __syncwarp();  // the row's probabilities are in p_s
 
-    // acc = alpha·acc + p·V over this thread's dims sub, sub + kPerRow, ...
+    float alpha[2];
 #pragma unroll
-    for (int u = 0; u < HD / kPerRow; ++u) acc[u] *= alpha;
-#pragma unroll 4
+    for (int r = 0; r < 2; ++r) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int u = 0; u < kCols; ++u) {
+        const int kpos = k0 + sub * kCols + u;
+        bool ok = kpos < k_end;
+        if (causal) ok = ok && kpos <= qpos[r];
+        if (window > 0) ok = ok && kpos > qpos[r] - window;
+        s[r][u] = ok ? s[r][u] * sm_scale : kNegInf;
+        mx = fmaxf(mx, s[r][u]);
+      }
+      // The row's kPerRow threads are neighbouring lanes of one warp.
+#pragma unroll
+      for (int o = 1; o < kPerRow; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_new = fmaxf(m[r], mx);
+      float sum = 0.f;
+      float* pr = p_s + (rg + r * kRowGroups) * kPS + sub * kCols;
+#pragma unroll
+      for (int u = 0; u < kCols; ++u) {
+        // A masked key gives exactly 0, also while the whole row is masked
+        // so far (m_new == kNegInf would make exp(0) = 1).
+        const float p = s[r][u] > 0.5f * kNegInf ? expf(s[r][u] - m_new) : 0.f;
+        pr[u] = p;
+        sum += p;
+      }
+#pragma unroll
+      for (int o = 1; o < kPerRow; o <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      alpha[r] = expf(m[r] - m_new);
+      l[r] = alpha[r] * l[r] + sum;
+      m[r] = m_new;
+    }
+    __syncwarp();  // the rows' probabilities are in p_s
+
+    // acc = alpha·acc + p·V over this thread's chunks sub, sub + 4, ...
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int c = 0; c < NCH; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[r][c][e] *= alpha[r];
+    const float* p0r = p_s + rg * kPS;
+    const float* p1r = p_s + (rg + kRowGroups) * kPS;
+#pragma unroll 2
     for (int t = 0; t < kBlockK; ++t) {
-      const float p = pr[t];
-      const float* vr = v_s + t * HD + sub;
+      const float p0 = p0r[t], p1 = p1r[t];
+      const float4* vr = reinterpret_cast<const float4*>(v_s + t * HD) + sub;
 #pragma unroll
-      for (int u = 0; u < HD / kPerRow; ++u) acc[u] = fmaf(p, vr[u * kPerRow], acc[u]);
+      for (int c = 0; c < NCH; ++c) {
+        const float4 vx = vr[c * kPerRow];
+        acc[0][c][0] = fmaf(p0, vx.x, acc[0][c][0]);
+        acc[0][c][1] = fmaf(p0, vx.y, acc[0][c][1]);
+        acc[0][c][2] = fmaf(p0, vx.z, acc[0][c][2]);
+        acc[0][c][3] = fmaf(p0, vx.w, acc[0][c][3]);
+        acc[1][c][0] = fmaf(p1, vx.x, acc[1][c][0]);
+        acc[1][c][1] = fmaf(p1, vx.y, acc[1][c][1]);
+        acc[1][c][2] = fmaf(p1, vx.z, acc[1][c][2]);
+        acc[1][c][3] = fmaf(p1, vx.w, acc[1][c][3]);
+      }
     }
   }
 
-  if (qpos < S) {
-    // A row with no valid key has l = 0 and acc = 0: it comes out as zeros.
-    const float inv = 1.f / fmaxf(l, 1e-30f);
-    T* orow = out + ((static_cast<size_t>(b) * H + h) * S + qpos) * HD;
 #pragma unroll
-    for (int u = 0; u < HD / kPerRow; ++u) orow[sub + u * kPerRow] = from_float<T>(acc[u] * inv);
+  for (int r = 0; r < 2; ++r) {
+    if (qpos[r] < S) {
+      // A row with no valid key has l = 0 and acc = 0: it comes out as zeros.
+      const float inv = 1.f / fmaxf(l[r], 1e-30f);
+      T* orow = out + ((static_cast<size_t>(b) * H + h) * S + qpos[r]) * HD;
+#pragma unroll
+      for (int c = 0; c < NCH; ++c) {
+        const int d = (sub + c * kPerRow) * 4;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) orow[d + e] = from_float<T>(acc[r][c][e] * inv);
+      }
+    }
   }
 }
 

@@ -10,27 +10,24 @@ function is :func:`repro_torch.kernels.ref.decode_attention_ref`.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from . import _build
 
+HEAD_DIMS = (32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_SHARED_BYTES = 232_448  # what one block may use on the H100
 
 launches = 0  # kernel launches since the last reset (ops.reset_launch_counts)
 
-_c_int = ctypes.c_int
-_c_ptr = ctypes.c_void_p
 
-
-def _lib():
-    lib = _build.load("decode_attention")
-    lib.decode_attention_launch.argtypes = [_c_ptr] * 5 + [_c_int] * 6 + [_c_ptr]
-    lib.decode_attention_launch.restype = _c_int
-    lib.decode_attention_shared_bytes.argtypes = [_c_int, _c_int]
-    lib.decode_attention_shared_bytes.restype = ctypes.c_longlong
-    return lib
+@functools.cache
+def _entry():
+    fn = _build.load("decode_attention").decode_attention_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def check_inputs(q, k_cache, v_cache, valid_len) -> None:
@@ -43,8 +40,10 @@ def check_inputs(q, k_cache, v_cache, valid_len) -> None:
         raise ValueError(
             f"caches {tuple(k_cache.shape)} / {tuple(v_cache.shape)} do not fit q {tuple(q.shape)}"
         )
-    if kv == 0 or h % kv or s == 0 or hd == 0:
-        raise ValueError(f"bad shape: H={h}, KV={kv}, S={s}, hd={hd}")
+    if kv == 0 or h % kv or s == 0:
+        raise ValueError(f"bad shape: H={h}, KV={kv}, S={s}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not supported by the kernel; it takes {HEAD_DIMS}")
     if q.dtype not in DTYPES or k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
         raise TypeError(
             f"q and the caches must share one of {list(DTYPES)}; got "
@@ -52,6 +51,8 @@ def check_inputs(q, k_cache, v_cache, valid_len) -> None:
         )
     if not (q.is_contiguous() and k_cache.is_contiguous() and v_cache.is_contiguous()):
         raise ValueError("q and the caches must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k_cache, v_cache)):
+        raise ValueError("q and the caches must start on a 16-byte boundary (vector loads)")
     if valid_len.shape != (b,) or valid_len.dtype != torch.int32 or not valid_len.is_contiguous():
         raise ValueError("valid_len must be a contiguous (B,) int32 tensor")
 
@@ -72,14 +73,11 @@ def decode_attention_cuda(
         raise ValueError(f"all inputs must lie on one CUDA device; got {devices}")
     b, h, hd = q.shape
     kv, s = k_cache.shape[1], k_cache.shape[2]
-    lib = _lib()
-    smem = lib.decode_attention_shared_bytes(h // kv, hd)
-    if smem > MAX_SHARED_BYTES:
-        raise ValueError(f"{h // kv} heads per KV head at hd={hd} need {smem} B of shared memory")
+    fn = _entry()
     out = torch.empty((b, h, hd), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.decode_attention_launch(
+        err = fn(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), valid_len.data_ptr(),
             out.data_ptr(), DTYPES[q.dtype], b, h, kv, s, hd, stream,
         )

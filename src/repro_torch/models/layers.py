@@ -108,7 +108,6 @@ def attention_apply(
     n_kv: int,
     rope_theta: float,
     sliding_window: int = 0,
-    positions: torch.Tensor | None = None,
     softcap: float = 0.0,
     repeat_kv: bool = False,
 ) -> torch.Tensor:
@@ -124,9 +123,7 @@ def attention_apply(
     v = _project(x, params["wv"])
     if k.shape[2] != n_kv:
         raise ValueError(f"wk has {k.shape[2]} KV heads, expected {n_kv}")
-    if positions is None:
-        positions = torch.arange(s, device=x.device)[None, :]
-    sin, cos = rope_tables(positions, q.shape[-1], rope_theta)
+    sin, cos = rope_tables(torch.arange(s, device=x.device)[None, :], q.shape[-1], rope_theta)
     q = rope_apply(q, sin, cos)
     k = rope_apply(k, sin, cos)
     # (B, S, heads, hd) → (B, heads, S, hd) as strided views: the kernel
@@ -189,6 +186,3 @@ def embed_apply(params: Params, tokens: torch.Tensor, dtype: torch.dtype) -> tor
     # Gather, then cast: the same values as casting the whole table first.
     return table[tokens].to(dtype)
 
-
-def unembed_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
-    return x @ params["table"].to(x.dtype).T

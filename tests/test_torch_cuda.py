@@ -72,16 +72,17 @@ def test_flash_kernel_takes_strided_views_and_empty_rows(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "b,h,kv,s,valid,dtype",
+    "b,h,kv,s,hd,valid,dtype",
     [
-        (8, 12, 12, 256, None, torch.float32),  # the decode path's shape
-        (4, 12, 12, 300, None, torch.float32),  # ragged S
-        (4, 12, 12, 256, [0, 77, 0, 256], torch.float32),  # empty rows
-        (2, 8, 2, 512, None, torch.bfloat16),  # GQA 4:1
+        (8, 12, 12, 256, 64, None, torch.float32),  # the decode path's shape
+        (4, 12, 12, 300, 64, None, torch.float32),  # ragged S
+        (4, 12, 12, 256, 64, [0, 77, 0, 256], torch.float32),  # empty rows
+        (2, 8, 2, 512, 64, None, torch.bfloat16),  # GQA 4:1
+        (2, 6, 2, 130, 128, None, torch.float32),  # GQA 3:1, hd 128
+        (3, 4, 2, 7, 32, [7, 0, 3], torch.float32),  # GQA 2:1, hd 32, S < one tile
     ],
 )
-def test_decode_kernel_matches_plain(cuda_device, b, h, kv, s, valid, dtype):
-    hd = 64
+def test_decode_kernel_matches_plain(cuda_device, b, h, kv, s, hd, valid, dtype):
     g = torch.Generator(device=cuda_device).manual_seed(1)
     q = _randn(g, (b, h, hd), cuda_device, dtype)
     kc = _randn(g, (b, kv, s, hd), cuda_device, dtype)

@@ -238,7 +238,9 @@ def test_flash_checks_accept_strided_views():
     fa_mod.check_inputs(x, x, x, torch.zeros((2,), dtype=torch.int32))
 
 
-@pytest.mark.parametrize("case", ["dtype", "noncontig", "valid_dtype", "cache_shape"])
+@pytest.mark.parametrize(
+    "case", ["dtype", "noncontig", "valid_dtype", "cache_shape", "hd48", "unaligned"]
+)
 def test_decode_checks_reject_what_the_kernel_does_not_take(case):
     q = torch.zeros((2, 4, 64))
     kc = torch.zeros((2, 2, 32, 64))
@@ -251,6 +253,10 @@ def test_decode_checks_reject_what_the_kernel_does_not_take(case):
         valid = valid.long()
     elif case == "cache_shape":
         kc = torch.zeros((2, 2, 32, 32))
+    elif case == "hd48":
+        q, kc = torch.zeros((2, 4, 48)), torch.zeros((2, 2, 32, 48))
+    elif case == "unaligned":  # contiguous, but 4 bytes past a 16-byte boundary
+        kc = torch.zeros(2 * 2 * 32 * 64 + 1)[1:].view(2, 2, 32, 64)
     with pytest.raises((ValueError, TypeError)):
         dec_mod.check_inputs(q, kc, kc, valid)
 
