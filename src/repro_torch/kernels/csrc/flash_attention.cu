@@ -76,8 +76,11 @@ __global__ void __launch_bounds__(kThreads)
   float* v_s = kt_s + HD * kKT;         // [kBlockK][HD]
   float* p_s = v_s + kBlockK * HD;      // [kBlockQ][kPS]
 
-  const int q0 = blockIdx.x * kBlockQ;
+  // Query tiles are rotated by head, so that neighbouring blocks, which the
+  // block scheduler tends to deal to the same SM, walk causal key ranges
+  // of different lengths.
   const int h = blockIdx.y;
+  const int q0 = ((blockIdx.x + h) % gridDim.x) * kBlockQ;
   const int b = blockIdx.z;
   const int kvh = h / (H / KV);
   const int tid = threadIdx.x;

@@ -186,3 +186,8 @@ def embed_apply(params: Params, tokens: torch.Tensor, dtype: torch.dtype) -> tor
     # Gather, then cast: the same values as casting the whole table first.
     return table[tokens].to(dtype)
 
+
+def unembed_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """Tied head: x (..., d) against the embedding table (vocab, d)."""
+    return x @ params["table"].to(x.dtype).T
+

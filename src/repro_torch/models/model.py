@@ -22,7 +22,15 @@ from torch import nn
 from ..device import resolve_device
 from .blocks import block_apply, check_supported, init_block
 from .config import ModelConfig
-from .layers import ZOO_ITEM, _init, embed_apply, init_embedding, init_norm, norm_apply
+from .layers import (
+    ZOO_ITEM,
+    _init,
+    embed_apply,
+    init_embedding,
+    init_norm,
+    norm_apply,
+    unembed_apply,
+)
 
 Params = dict[str, Any]
 
@@ -75,7 +83,7 @@ class Model(nn.Module):
 
     def _head(self, params: Params, h: torch.Tensor) -> torch.Tensor:
         if self.cfg.tie_embeddings:
-            return h @ params["embed"]["table"].to(h.dtype).T
+            return unembed_apply(params["embed"], h)
         return h @ params["lm_head"].to(h.dtype)
 
     def logits(self, params: Params, batch: dict[str, torch.Tensor]) -> torch.Tensor:

@@ -137,6 +137,14 @@ def test_model_logits_reduced_orloj_gpt():
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
 
 
+def test_model_logits_tied_head():
+    """A tied head goes through unembed_apply against the embedding table."""
+    cfg = get_config("orloj_gpt").reduced(tie_embeddings=True, n_layers=1)
+    tokens = np.random.default_rng(9).integers(0, cfg.vocab_size, size=(2, 16))
+    got, want = _logits_pair(cfg, tokens, seed=9)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+
+
 def test_model_logits_full_width_scanned_stack():
     """Full orloj_gpt width (d 768, 12 heads, d_ff 3072) at 2 layers with the
     scanned layout that convert.py unstacks.  The config's dtype is bfloat16,
