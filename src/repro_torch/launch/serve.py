@@ -1,4 +1,4 @@
-"""Serving driver of the port: the paper's system end to end, with the
+"""Serving entry point of the port: the paper's system end to end, with the
 model executed by PyTorch and the hand-written Hopper kernels.
 
 ``python -m repro_torch.launch.serve --scheduler orloj --n 200``
