@@ -7,29 +7,39 @@ Phases, each reported on its own lines; any failure exits non-zero:
 
 1. card: the GPU's name and power limit (``nvidia-smi``), the torch, CUDA
    and nvcc versions;
-2. build: both attention kernels built from ``src/repro_torch/kernels/csrc``
-   with nvcc for sm_90a;
+2. build: the four kernels (flash and decode attention, RMSNorm, MoE
+   gating) built from ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a;
 3. kernels vs plain: each CUDA kernel against its plain PyTorch version on
-   the card (float32 tolerance 1e-4: another order of summation; bfloat16
-   2e-2: one bf16 rounding of the probabilities);
-4. serve: full-width ``orloj_gpt`` (12 layers, d 768, 12 heads, vocab
-   32000, weights from a seeded ``torch.Generator``) profiled for Eq. 3 and
-   serving 100 requests under the Orloj scheduler; the logits of a small
-   batch are held against the same model run on the CPU;
-5. tokens: 32 token requests through continuous batching on the decode
-   kernel;
-6. where the time goes: ``torch.profiler`` over one full prefill batch and
-   one decode step;
-7. the ``kernels`` line (JSON): launches on the main path, kernel, plain
+   the card, at both models' shapes (attention in float32 to 1e-4: another
+   order of summation; RMSNorm and the gates in float32 to 1e-5: one row
+   sum in another order; bfloat16 to 2e-2: one bf16 rounding; the gating's
+   expert ids exactly);
+4. orloj_gpt: full width (12 layers, d 768, 12 heads, vocab 32000, weights
+   from a seeded ``torch.Generator``) profiled for Eq. 3 and serving 100
+   requests under the Orloj scheduler; the logits of a small batch held
+   against the same weights on the CPU; 32 token requests through
+   continuous batching on the decode kernel; ``torch.profiler`` over one
+   full prefill batch and one decode step;
+5. arctic: Snowflake Arctic at full width (d 7168, 56 query heads on 8 KV
+   heads, 128 experts top-2 beside a dense SwiGLU) cut to 1 layer, in
+   float32 (56 GB of weights), through the same phases; its card-vs-CPU
+   check runs a second 1-layer full-width model with 8 experts and a
+   512-word vocabulary, whose weights fit the host, and also holds the
+   routing ids of both runs equal;
+6. the ``kernels`` line (JSON): launches on the main paths, kernel, plain
    and library times, and the least time the card could take.
 
-The launch counters are set to 0 just before the serve and token paths
-and read just after; comparisons and timings run outside those windows.
-The last line is ``{"ok": true, "device": {...}}``.
+The launch counters are set to 0 just before each serve and token path
+and read just after; the line's launches are their sums.  Comparisons and
+timings run outside those windows.  The last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -46,8 +56,10 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 F32_TOL, BF16_TOL = 1e-4, 2e-2
-LOGITS_TOL = 1e-3  # card vs CPU, 12 float32 layers and a 768-wide head
+ROW_TOL = 1e-5  # RMSNorm and the gates in float32: one row sum in another order
+LOGITS_TOL = 1e-3  # card vs CPU, float32 layers and a d-wide head
 N_REQUESTS, N_TOKEN_REQUESTS = 100, 32
+ARCTIC_LAYERS = 1  # 56.3 GB of float32 weights per layer: one fits the 80 GB card
 
 
 def log(msg: str) -> None:
@@ -125,6 +137,21 @@ def decode_bound(q, k_cache, valid_len) -> tuple[float, str]:
     return _bound(nbytes, 4 * hd * valid * h)
 
 
+def rmsnorm_bound(x) -> tuple[float, str]:
+    """x read and the output written once, the float32 scale once; ~4
+    FLOPs per element (square, sum, two products)."""
+    t, d = x.shape
+    return _bound(2 * t * d * x.element_size() + 4 * d, 4 * t * d)
+
+
+def gating_bound(logits, k: int) -> tuple[float, str]:
+    """The float32 logits read once, the (T, k) float32 gates and int32 ids
+    written once; per logit a subtraction, an exp, a division and k
+    comparisons."""
+    t, e = logits.shape
+    return _bound(4 * t * e + 8 * t * k, (3 + k) * t * e)
+
+
 def _bound(nbytes: float, flops: float) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOP_PER_S * 1e3
@@ -167,13 +194,15 @@ def _randn(gen, shape, dtype):
 
 
 def phase_kernels_vs_plain() -> dict[str, float]:
-    """Every case of both kernels against its plain version; returns the
-    error at each kernel's main-path shape."""
+    """Every case of the four kernels against its plain version; returns the
+    error at each kernel's main-path shape (``arctic_*``: at Arctic's)."""
     import torch
 
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gating as gating
     from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rms
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     f32, bf16 = torch.float32, torch.bfloat16
@@ -181,18 +210,19 @@ def phase_kernels_vs_plain() -> dict[str, float]:
     failures = []
 
     flash_cases = [
-        ("main path (8,12,256,64) f32 causal", 8, 12, 12, 256, f32, None, 0),
-        ("GQA (2,8->2,256,64) f32", 2, 8, 2, 256, f32, None, 0),
-        ("bf16 (8,12,256,64)", 8, 12, 12, 256, bf16, None, 0),
-        ("ragged S=300 (2,12,300,64) f32", 2, 12, 12, 300, f32, None, 0),
-        ("lengths [256,70,17,1,200,128,64,33] f32", 8, 12, 12, 256, f32,
+        ("main path (8,12,256,64) f32 causal", 8, 12, 12, 256, 64, f32, None, 0),
+        ("GQA (2,8->2,256,64) f32", 2, 8, 2, 256, 64, f32, None, 0),
+        ("bf16 (8,12,256,64)", 8, 12, 12, 256, 64, bf16, None, 0),
+        ("ragged S=300 (2,12,300,64) f32", 2, 12, 12, 300, 64, f32, None, 0),
+        ("lengths [256,70,17,1,200,128,64,33] f32", 8, 12, 12, 256, 64, f32,
          [256, 70, 17, 1, 200, 128, 64, 33], 0),
-        ("window 64 (2,12,256,64) f32", 2, 12, 12, 256, f32, None, 64),
+        ("window 64 (2,12,256,64) f32", 2, 12, 12, 256, 64, f32, None, 64),
+        ("arctic (8,56->8,256,128) f32 causal", 8, 56, 8, 256, 128, f32, None, 0),
     ]
-    for name, b, h, kv, s, dt, lens, window in flash_cases:
-        q = _randn(gen, (b, h, s, 64), dt)
-        k = _randn(gen, (b, kv, s, 64), dt)
-        v = _randn(gen, (b, kv, s, 64), dt)
+    for name, b, h, kv, s, hd, dt, lens, window in flash_cases:
+        q = _randn(gen, (b, h, s, hd), dt)
+        k = _randn(gen, (b, kv, s, hd), dt)
+        v = _randn(gen, (b, kv, s, hd), dt)
         lt = None if lens is None else torch.tensor(lens, dtype=torch.int32, device="cuda")
         out = fa.flash_attention_cuda(q, k, v, lt, causal=True, window=window)
         want = ref.flash_attention_ref(q, k, v, lengths=lt, causal=True, window=window)
@@ -205,16 +235,19 @@ def phase_kernels_vs_plain() -> dict[str, float]:
             failures.append(f"flash_attention {name}")
         if name.startswith("main path"):
             main_err["flash_attention"] = err
+        if name.startswith("arctic"):
+            main_err["arctic_flash_attention"] = err
 
     decode_cases = [
-        ("main path (8,12,256,64) f32", 256, None),
-        ("S=300 f32", 300, None),
-        ("valid_len 0 rows [0,77,0,256,5,0,1,128] f32", 256, [0, 77, 0, 256, 5, 0, 1, 128]),
+        ("main path (8,12,256,64) f32", 12, 12, 256, 64, None),
+        ("S=300 f32", 12, 12, 300, 64, None),
+        ("valid_len 0 rows [0,77,0,256,5,0,1,128] f32", 12, 12, 256, 64, [0, 77, 0, 256, 5, 0, 1, 128]),
+        ("arctic (8,56->8,256,128) f32", 56, 8, 256, 128, None),
     ]
-    for name, s, valid in decode_cases:
-        q = _randn(gen, (8, 12, 64), f32)
-        kc = _randn(gen, (8, 12, s, 64), f32)
-        vc = _randn(gen, (8, 12, s, 64), f32)
+    for name, h, kv, s, hd, valid in decode_cases:
+        q = _randn(gen, (8, h, hd), f32)
+        kc = _randn(gen, (8, kv, s, hd), f32)
+        vc = _randn(gen, (8, kv, s, hd), f32)
         if valid is None:
             vl = torch.randint(1, s + 1, (8,), generator=gen, device="cuda", dtype=torch.int32)
         else:
@@ -229,49 +262,139 @@ def phase_kernels_vs_plain() -> dict[str, float]:
             failures.append(f"decode_attention {name}")
         if name.startswith("main path"):
             main_err["decode_attention"] = err
+        if name.startswith("arctic"):
+            main_err["arctic_decode_attention"] = err
+
+    rms_cases = [
+        ("main path (2048,7168) f32", 2048, 7168, f32),
+        ("(2048,7168) bf16", 2048, 7168, bf16),
+        ("ragged T=300 (300,7168) f32", 300, 7168, f32),
+        ("(64,896) f32", 64, 896, f32),
+        ("(7,1024) f32", 7, 1024, f32),
+    ]
+    for name, t, d, dt in rms_cases:
+        x = _randn(gen, (t, d), dt) * 3
+        scale = _randn(gen, (d,), f32)
+        out = rms.rmsnorm_cuda(x, scale, eps=1e-5)
+        want = ref.rmsnorm_ref(x, scale, 1e-5)
+        torch.cuda.synchronize()
+        err = (out.float() - want.float()).abs().max().item()
+        tol = BF16_TOL if dt == bf16 else ROW_TOL
+        # rtol = atol = tol: a bf16 output of magnitude ~10 is one bf16 step
+        # (0.06) apart when the two float32 values straddle a rounding boundary.
+        ok = out.dtype == dt and bool(torch.isclose(out.float(), want.float(), rtol=tol, atol=tol).all())
+        log(f"kernel vs plain: rmsnorm {name}: max_abs_err {err:.3e} (rtol = atol = {tol}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"rmsnorm {name}")
+        if name.startswith("main path"):
+            main_err["rmsnorm"] = err
+
+    tie = torch.zeros((6, 16), device="cuda")
+    tie[1] = 3.0  # a row of equal logits
+    tie[2, [3, 9, 12]] = 5.0  # three equal maxima
+    tie[3, [15, 0]] = 2.0
+    tie[4] = torch.arange(16, device="cuda") % 4  # every value four times
+    tie[5, ::2] = -1.0
+    gating_cases = [
+        ("main path (2048,128) k 2", _randn(gen, (2048, 128), f32) * 2, 2),
+        ("(256,16) k 4", _randn(gen, (256, 16), f32) * 2, 4),
+        ("(256,8) k 1", _randn(gen, (256, 8), f32) * 2, 1),
+        ("ties (6,16) k 4", tie, 4),
+    ]
+    for name, logits, k in gating_cases:
+        gates, ids = gating.moe_gating_cuda(logits, k)
+        wg, wi = ref.moe_gating_ref(logits, k)
+        torch.cuda.synchronize()
+        err = (gates - wg).abs().max().item()
+        ids_equal = torch.equal(ids, wi)
+        ok = ids_equal and err <= ROW_TOL
+        log(f"kernel vs plain: moe_gating {name}: ids equal {ids_equal}, gates max_abs_err {err:.3e} "
+            f"(tol {ROW_TOL}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"moe_gating {name}")
+        if name.startswith("main path"):
+            main_err["moe_gating"] = err
     if failures:
         raise SystemExit(f"kernels disagree with their plain versions: {failures}")
     return main_err
 
 
-def phase_serve(engine, ecfg) -> dict[str, int]:
-    import numpy as np
-    import torch
-
+def phase_serve(engine, ecfg, label: str, must_launch: tuple[str, ...]) -> dict[str, int]:
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import length_sampler, make_scheduler
-    from repro_torch.models import Model
 
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     lm = engine.profile_latency_model()
-    log(f"serve: Eq.3 fit on the card: c0={lm.c0:.4f} ms, c1={lm.c1 * 1e3:.5f} ms/ktok "
+    log(f"{label}: Eq.3 fit on the card: c0={lm.c0:.4f} ms, c1={lm.c1 * 1e3:.5f} ms/ktok "
         f"({time.perf_counter() - t0:.1f} s to profile {len(ecfg.buckets) * len(ecfg.batch_sizes)} shapes)")
     reqs, hist = engine.make_requests(
         N_REQUESTS, lm, length_sampler=length_sampler, slo_scale=3.0, utilization=0.7, seed=0
     )
     res = engine.serve(reqs, make_scheduler("orloj", lm, hist, ecfg.batch_sizes))
     counts = ops.launch_counts()
-    log(f"serve: orloj {res.summary()} n_total={res.n_total} conserved={res.conserved} "
+    log(f"{label}: orloj {res.summary()} n_total={res.n_total} conserved={res.conserved} "
         f"batches={res.n_batches} launches={counts}")
     if res.n_total != N_REQUESTS or not res.conserved:
-        raise SystemExit(f"serve: {res.n_total} of {N_REQUESTS} requests accounted, conserved={res.conserved}")
-    if counts["flash_attention"] <= 0:
-        raise SystemExit("serve: the prefill path launched no flash_attention kernel")
-
-    # What comes out is right: finite logits of the expected shape that agree
-    # with the same weights run through the plain path on the CPU.
-    tokens = torch.from_numpy(np.random.default_rng(0).integers(1, 1000, size=(2, 32)))
-    with torch.no_grad():
-        got = engine.model.logits(engine.params, {"tokens": tokens.to(engine.device)})
-        cpu_params = _to_cpu(engine.params)
-        want = Model(engine.model.cfg, device="cpu").logits(cpu_params, {"tokens": tokens})
-    err = (got.cpu() - want).abs().max().item()
-    ok = got.shape == (2, tokens.shape[1], engine.model.cfg.vocab_size) and bool(torch.isfinite(got).all())
-    log(f"serve: logits {tuple(got.shape)} finite={ok}; card vs CPU max_abs_err {err:.3e} (tol {LOGITS_TOL})")
-    if not ok or not err <= LOGITS_TOL:
-        raise SystemExit("serve: the model's logits on the card disagree with the CPU's")
+        raise SystemExit(f"{label}: {res.n_total} of {N_REQUESTS} requests accounted, conserved={res.conserved}")
+    for name in must_launch:
+        if counts[name] <= 0:
+            raise SystemExit(f"{label}: the prefill path launched no {name} kernel")
     return counts
+
+
+@contextlib.contextmanager
+def _routing_log():
+    """Records the (gates, ids) of every MoE layer's routing in a forward."""
+    from repro_torch.models import moe
+
+    seen: list = []
+    route = moe.route
+
+    def recording(*args, **kwargs):
+        out = route(*args, **kwargs)
+        seen.append(out)
+        return out
+
+    moe.route = recording
+    try:
+        yield seen
+    finally:
+        moe.route = route
+
+
+def phase_card_vs_cpu(model, params, label: str) -> None:
+    """What comes out is right: finite logits of the expected shape that
+    agree with the same weights run through the plain path on the CPU, and,
+    for an MoE model, the same expert ids in both runs."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import Model
+
+    cfg = model.cfg
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(1, 1000, size=(2, 32)))
+    with torch.no_grad(), _routing_log() as card_routes:
+        got = model.logits(params, {"tokens": tokens.to(model.device)})
+    with torch.no_grad(), _routing_log() as cpu_routes:
+        want = Model(cfg, device="cpu").logits(_to_cpu(params), {"tokens": tokens})
+    err = (got.cpu() - want).abs().max().item()
+    ok = got.shape == (2, tokens.shape[1], cfg.vocab_size) and bool(torch.isfinite(got).all())
+    log(f"{label}: logits {tuple(got.shape)} finite={ok}, max |logit| {want.abs().max().item():.3f}; "
+        f"card vs CPU max_abs_err {err:.3e} (tol {LOGITS_TOL})")
+    if not ok or not err <= LOGITS_TOL:
+        raise SystemExit(f"{label}: the model's logits on the card disagree with the CPU's")
+    if cfg.is_moe:
+        if len(card_routes) != cfg.n_layers or len(cpu_routes) != cfg.n_layers:
+            raise SystemExit(f"{label}: {len(card_routes)} and {len(cpu_routes)} routings for {cfg.n_layers} layers")
+        for (card_logits, _, card_ids), (cpu_logits, _, cpu_ids) in zip(card_routes, cpu_routes):
+            probs = torch.softmax(cpu_logits.double(), dim=-1).sort(dim=-1, descending=True).values
+            gap = (probs[:, cfg.top_k - 1] - probs[:, cfg.top_k]).min().item()
+            same = torch.equal(card_ids.cpu(), cpu_ids)
+            log(f"{label}: routing ids of {tuple(cpu_ids.shape)} equal on card and CPU: {same}; smallest gap "
+                f"between a row's k-th and (k+1)-th probability (k = {cfg.top_k}) {gap:.3e}")
+            if not same:
+                raise SystemExit(f"{label}: the card routed tokens to other experts than the CPU")
 
 
 def _to_cpu(tree):
@@ -282,7 +405,7 @@ def _to_cpu(tree):
     return tree.cpu()
 
 
-def phase_tokens(engine) -> dict[str, int]:
+def phase_tokens(engine, label: str) -> dict[str, int]:
     from repro_torch.core.tokensched import LengthAwareTokenScheduler, TokenSchedConfig
     from repro_torch.kernels import ops
 
@@ -297,18 +420,18 @@ def phase_tokens(engine) -> dict[str, int]:
     counts = ops.launch_counts()
     done = sum(r.tokens_done for r in reqs)
     want = sum(r.out_tokens for r in reqs)
-    log(f"tokens: token_orloj {res.summary()} tokens {done}/{want} step {step_ms:.4f} ms "
+    log(f"{label} tokens: token_orloj {res.summary()} tokens {done}/{want} step {step_ms:.4f} ms "
         f"(full batch 8, cache 256) launches={counts}")
     if res.n_total != N_TOKEN_REQUESTS or not res.conserved:
-        raise SystemExit("tokens: requests not conserved")
+        raise SystemExit(f"{label} tokens: requests not conserved")
     if any(r.tokens_done != r.out_tokens for r in reqs):
-        raise SystemExit(f"tokens: {done} of {want} tokens served")
+        raise SystemExit(f"{label} tokens: {done} of {want} tokens served")
     if counts["decode_attention"] <= 0:
-        raise SystemExit("tokens: the decode path launched no decode_attention kernel")
+        raise SystemExit(f"{label} tokens: the decode path launched no decode_attention kernel")
     return counts
 
 
-def phase_where_time_goes(engine) -> None:
+def phase_where_time_goes(engine, label: str) -> None:
     """Device time by kernel over one prefill batch at (8, 256) and one
     full-capacity decode step."""
     import numpy as np
@@ -330,16 +453,18 @@ def phase_where_time_goes(engine) -> None:
         rows = [(e.key, e.device_time_total / 1e3) for e in prof.key_averages()
                 if e.device_time_total > 0 and e.device_type.name == "CUDA"]
         busy = sum(t for _, t in rows)
-        top = sorted(rows, key=lambda r: -r[1])[:6]
+        top = sorted(rows, key=lambda r: -r[1])[:8]
         share = ", ".join(f"{k[:48]} {t:.4f} ms" for k, t in top)
         if busy == 0:
-            log(f"where the time goes: {name}: the profiler recorded no device time; wall {wall_ms:.4f} ms")
+            log(f"{label} where the time goes: {name}: the profiler recorded no device time; "
+                f"wall {wall_ms:.4f} ms")
         else:
-            log(f"where the time goes: {name}: wall {wall_ms:.4f} ms, device busy {busy:.4f} ms "
+            log(f"{label} where the time goes: {name}: wall {wall_ms:.4f} ms, device busy {busy:.4f} ms "
                 f"(idle share {max(0.0, 1 - busy / wall_ms):.3f}); top: {share}")
 
 
-def phase_kernel_line(counts: dict[str, int], errs: dict[str, float]) -> dict:
+def _attention_entries(gen, b, h, kv, s, hd) -> tuple[dict, dict]:
+    """Times and bounds of both attention kernels at one shape, float32."""
     import torch
     import torch.nn.functional as F
 
@@ -347,39 +472,175 @@ def phase_kernel_line(counts: dict[str, int], errs: dict[str, float]) -> dict:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    b, h, s, hd = 8, 12, 256, 64
-    q, k, v = (_randn(gen, (b, h, s, hd), torch.float32) for _ in range(3))
+    q = _randn(gen, (b, h, s, hd), torch.float32)
+    k, v = (_randn(gen, (b, kv, s, hd), torch.float32) for _ in range(2))
+    # SDPA's GQA needs the KV heads repeated; it is the yardstick only.
+    kr, vr = (t.repeat_interleave(h // kv, dim=1) for t in (k, v))
     f_bound, f_by = flash_bound(q, k, None, True, 0)
+    flash = {
+        "ms": time_ms(lambda: fa.flash_attention_cuda(q, k, v)),
+        "plain_ms": time_ms(lambda: ref.flash_attention_ref(q, k, v)),
+        "bound_ms": f_bound, "bound_by": f_by,
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q, kr, vr, is_causal=True)),
+    }
+    qd = _randn(gen, (b, h, hd), torch.float32)
+    vl = torch.full((b,), s, dtype=torch.int32, device="cuda")  # the step at full capacity
+    mask = (torch.arange(s, device="cuda")[None] < vl[:, None])[:, None, None, :]
+    d_bound, d_by = decode_bound(qd, k, vl)
+    decode = {
+        "ms": time_ms(lambda: dec.decode_attention_cuda(qd, k, v, vl)),
+        "plain_ms": time_ms(lambda: ref.decode_attention_ref(qd, k, v, vl)),
+        "bound_ms": d_bound, "bound_by": d_by,
+        "library_ms": time_ms(
+            lambda: F.scaled_dot_product_attention(qd[:, :, None], kr, vr, attn_mask=mask)
+        ),
+    }
+    return flash, decode
+
+
+def phase_kernel_line(counts: dict[str, int], errs: dict[str, float]) -> dict:
+    """One entry per kernel.  Flash and decode are timed at orloj_gpt's
+    (8,12,256,64) as before and, under ``arctic``, at Arctic's
+    (8,56->8,256,128); RMSNorm at Arctic's (2048, 7168) and the gating at
+    its (2048, 128) with k 2."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import moe_gating as gating
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rms
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    flash, decode = _attention_entries(gen, 8, 12, 12, 256, 64)
+    a_flash, a_decode = _attention_entries(gen, 8, 56, 8, 256, 128)
     flash = {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:88",
-        "launches": counts["flash_attention"], "max_abs_err": errs["flash_attention"],
-        "ms": time_ms(lambda: fa.flash_attention_cuda(q, k, v)),
-        "plain_ms": time_ms(lambda: ref.flash_attention_ref(q, k, v)),
-        "bound_ms": f_bound, "bound_by": f_by,
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)),
+        "launches": counts["flash_attention"], "max_abs_err": errs["flash_attention"], **flash,
+        "arctic": {"max_abs_err": errs["arctic_flash_attention"], **a_flash},
     }
-
-    qd = _randn(gen, (b, h, hd), torch.float32)
-    kc, vc = (_randn(gen, (b, h, s, hd), torch.float32) for _ in range(2))
-    vl = torch.full((b,), s, dtype=torch.int32, device="cuda")  # the step at full capacity
-    mask = (torch.arange(s, device="cuda")[None] < vl[:, None])[:, None, None, :]
-    d_bound, d_by = decode_bound(qd, kc, vl)
     decode = {
         "name": "decode_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention.py:80",
-        "launches": counts["decode_attention"], "max_abs_err": errs["decode_attention"],
-        "ms": time_ms(lambda: dec.decode_attention_cuda(qd, kc, vc, vl)),
-        "plain_ms": time_ms(lambda: ref.decode_attention_ref(qd, kc, vc, vl)),
-        "bound_ms": d_bound, "bound_by": d_by,
-        "library_ms": time_ms(
-            lambda: F.scaled_dot_product_attention(qd[:, :, None], kc, vc, attn_mask=mask)
-        ),
+        "launches": counts["decode_attention"], "max_abs_err": errs["decode_attention"], **decode,
+        "arctic": {"max_abs_err": errs["arctic_decode_attention"], **a_decode},
     }
-    return {"kernels": [flash, decode]}
+
+    x = _randn(gen, (2048, 7168), torch.float32)
+    scale = _randn(gen, (7168,), torch.float32)
+    r_bound, r_by = rmsnorm_bound(x)
+    rmsnorm = {
+        "name": "rmsnorm", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+        "replaces": "src/repro/kernels/rmsnorm.py:24",
+        "launches": counts["rmsnorm"], "max_abs_err": errs["rmsnorm"],
+        "ms": time_ms(lambda: rms.rmsnorm_cuda(x, scale, eps=1e-5)),
+        "plain_ms": time_ms(lambda: ref.rmsnorm_ref(x, scale, 1e-5)),
+        "bound_ms": r_bound, "bound_by": r_by,
+        "library_ms": time_ms(lambda: F.rms_norm(x, (7168,), weight=scale, eps=1e-5)),
+    }
+
+    logits = _randn(gen, (2048, 128), torch.float32) * 2
+
+    def composite():  # softmax -> topk -> renormalise: no single call does all three
+        g, i = torch.topk(torch.softmax(logits, dim=-1), 2, dim=-1)
+        return g / g.sum(-1, keepdim=True).clamp_min(1e-9), i
+
+    g_bound, g_by = gating_bound(logits, 2)
+    moe_gating = {
+        "name": "moe_gating", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/moe_gating.cu",
+        "replaces": "src/repro/kernels/moe_gating.py:44",
+        "launches": counts["moe_gating"], "max_abs_err": errs["moe_gating"],
+        "ms": time_ms(lambda: gating.moe_gating_cuda(logits, 2)),
+        "plain_ms": time_ms(lambda: ref.moe_gating_ref(logits, 2)),
+        "bound_ms": g_bound, "bound_by": g_by,
+        "library_ms": None, "composite_ms": time_ms(composite),
+    }
+    return {"kernels": [flash, decode, rmsnorm, moe_gating]}
+
+
+def _release() -> None:
+    """Return the memory of what the caller has just deleted to the card."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_orloj_gpt(ecfg) -> list[dict[str, int]]:
+    """The dense path, as PR 11 left it: full-width orloj_gpt."""
+    from repro_torch.configs.orloj_gpt import CONFIG
+    from repro_torch.serving.engine import TorchServingEngine
+
+    t0 = time.perf_counter()
+    engine = TorchServingEngine(CONFIG, ecfg, seed=0)
+    n_params = engine.model.param_count(engine.params)
+    log(f"serve: {CONFIG.name} {CONFIG.n_layers} layers, d {CONFIG.d_model}, "
+        f"{n_params} params, computing in float32 (built in {time.perf_counter() - t0:.1f} s)")
+    windows = [phase_serve(engine, ecfg, "serve", ("flash_attention",))]
+    phase_card_vs_cpu(engine.model, engine.params, "serve")
+    windows.append(phase_tokens(engine, "orloj_gpt"))
+    phase_where_time_goes(engine, "orloj_gpt")
+    del engine
+    _release()
+    return windows
+
+
+def run_arctic(ecfg) -> list[dict[str, int]]:
+    """The MoE path: Snowflake Arctic at full width, cut to ARCTIC_LAYERS."""
+    import torch
+
+    from repro_torch.configs.arctic_480b import CONFIG
+    from repro_torch.models import Model
+    from repro_torch.serving.engine import TorchServingEngine
+
+    cfg = dataclasses.replace(CONFIG, n_layers=ARCTIC_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = TorchServingEngine(cfg, ecfg, seed=0)
+    torch.cuda.synchronize()
+    n_params = engine.model.param_count(engine.params)
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(engine.params))
+    log(f"arctic: {cfg.name} cut to {cfg.n_layers} of {CONFIG.n_layers} layers at full width: d {cfg.d_model}, "
+        f"{cfg.n_heads} query heads on {cfg.n_kv_heads} KV heads of {cfg.resolved_head_dim}, "
+        f"{cfg.n_experts} experts top-{cfg.top_k} (d_ff {cfg.d_ff}) beside a dense {cfg.mlp}, "
+        f"vocab {cfg.vocab_size}; {n_params} params, {n_bytes} bytes of float32 weights held; "
+        f"peak {torch.cuda.max_memory_allocated()} bytes after init "
+        f"(built in {time.perf_counter() - t0:.1f} s)")
+    windows = [phase_serve(engine, ecfg, "arctic", ("rmsnorm", "moe_gating", "flash_attention"))]
+    log(f"arctic: peak {torch.cuda.max_memory_allocated()} bytes after serving")
+
+    # The 56 GB model does not go to the host: the card-vs-CPU check runs a
+    # full-width layer with 8 experts and a 512-word vocabulary.
+    small = dataclasses.replace(cfg, n_experts=8, vocab_size=512)
+    model = Model(small, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(1))
+    log(f"arctic card vs CPU: {small.n_layers} layer at full width with {small.n_experts} experts, "
+        f"vocab {small.vocab_size}: {model.param_count(params)} params")
+    phase_card_vs_cpu(model, params, "arctic card vs CPU")
+    del model, params
+    _release()
+
+    windows.append(phase_tokens(engine, "arctic"))
+    phase_where_time_goes(engine, "arctic")
+    log(f"arctic: peak {torch.cuda.max_memory_allocated()} bytes over the whole Arctic phase")
+    del engine
+    _release()
+    return windows
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 def main() -> int:
@@ -388,8 +649,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; this script runs on the card only", file=sys.stderr)
         return 2
-    from repro_torch.configs.orloj_gpt import CONFIG
-    from repro_torch.serving.engine import EngineConfig, TorchServingEngine
+    from repro_torch.kernels import _build
+    from repro_torch.serving.engine import EngineConfig
 
     # Full float32 in the plain versions and the model's matrix products.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -401,15 +662,8 @@ def main() -> int:
     errs = phase_kernels_vs_plain()
 
     ecfg = EngineConfig()
-    t0 = time.perf_counter()
-    engine = TorchServingEngine(CONFIG, ecfg, seed=0)
-    n_params = engine.model.param_count(engine.params)
-    log(f"serve: {CONFIG.name} {CONFIG.n_layers} layers, d {CONFIG.d_model}, "
-        f"{n_params} params, computing in float32 (built in {time.perf_counter() - t0:.1f} s)")
-    serve_counts = phase_serve(engine, ecfg)
-    token_counts = phase_tokens(engine)
-    counts = {k: serve_counts[k] + token_counts[k] for k in serve_counts}
-    phase_where_time_goes(engine)
+    windows = run_orloj_gpt(ecfg) + run_arctic(ecfg)
+    counts = {name: sum(w[name] for w in windows) for name in _build.KERNELS}
 
     kernels = phase_kernel_line(counts, errs)
     log(f"done in {time.perf_counter() - t_start:.1f} s")

@@ -1,4 +1,5 @@
-"""Architecture registry of the port: only the serving path's model so far.
+"""Architecture registry of the port: the serving path's dense model and
+Snowflake Arctic (the MoE path).
 
 ``get_config(name)`` returns the full published configuration, as
 :func:`repro.configs.get_config` does; the rest of the zoo is ported later
@@ -10,7 +11,7 @@ import importlib
 
 from ..models.config import ModelConfig
 
-ARCHS = ["orloj_gpt"]
+ARCHS = ["orloj_gpt", "arctic_480b"]
 
 
 def get_config(name: str) -> ModelConfig:

@@ -9,7 +9,8 @@ Each kernel ships:
 - ``ops.py`` — the public wrappers: CPU tensors take the plain version,
   CUDA tensors the kernel.
 
-The wrappers are not re-exported here, so that ``kernels.flash_attention``
-and ``kernels.decode_attention`` stay the binding modules; call them as
-``kernels.ops.flash_attention`` and ``kernels.ops.decode_attention``.
+The kernels: ``flash_attention``, ``decode_attention``, ``rmsnorm`` and
+``moe_gating``.  The wrappers are not re-exported here, so that
+``kernels.<name>`` stays the binding module; call them as
+``kernels.ops.<name>``.
 """

@@ -12,7 +12,16 @@ import torch
 
 from . import decode_attention as _decode
 from . import flash_attention as _flash
+from . import moe_gating as _gating
 from . import ref
+from . import rmsnorm as _rmsnorm
+
+_KERNELS = {
+    "flash_attention": _flash,
+    "decode_attention": _decode,
+    "rmsnorm": _rmsnorm,
+    "moe_gating": _gating,
+}
 
 
 def _route(t: torch.Tensor) -> str:
@@ -49,11 +58,31 @@ def decode_attention(
     return _decode.decode_attention_cuda(q, k_cache, v_cache, valid_len)
 
 
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
+    """x: (..., d), flattened to rows; scale: (d,).  The default eps is the
+    reference wrapper's (``repro.kernels.ops.rmsnorm``); the models pass
+    their own 1e-5."""
+    shape = x.shape
+    x2 = x.reshape(-1, shape[-1])
+    if _route(x) == "cpu":
+        out = ref.rmsnorm_ref(x2, scale, eps)
+    else:
+        out = _rmsnorm.rmsnorm_cuda(x2.contiguous(), scale.float().contiguous(), eps=eps)
+    return out.reshape(shape)
+
+
+def moe_gating(logits: torch.Tensor, top_k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """logits: (T, E) → (gates (T, k) float32, ids (T, k) int32)."""
+    if _route(logits) == "cpu":
+        return ref.moe_gating_ref(logits, top_k)
+    return _gating.moe_gating_cuda(logits.contiguous(), top_k)
+
+
 def launch_counts() -> dict[str, int]:
     """Kernel launches since the last :func:`reset_launch_counts`."""
-    return {"flash_attention": _flash.launches, "decode_attention": _decode.launches}
+    return {name: mod.launches for name, mod in _KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    _flash.launches = 0
-    _decode.launches = 0
+    for mod in _KERNELS.values():
+        mod.launches = 0

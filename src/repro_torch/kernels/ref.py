@@ -1,8 +1,8 @@
 """Plain PyTorch versions of the port's kernels (the allclose references).
 
-Same masking as :mod:`repro.kernels.ref`: masked scores are filled with
--1e30, the softmax runs in float32, and a row with no valid key gives 0
-(not NaN, not a uniform average)."""
+The attention versions mask as :mod:`repro.kernels.ref` does: masked
+scores are filled with -1e30, the softmax runs in float32, and a row with
+no valid key gives 0 (not NaN, not a uniform average)."""
 
 from __future__ import annotations
 
@@ -65,3 +65,36 @@ def decode_attention_ref(
     probs = torch.where(valid, probs, 0.0).to(q.dtype)
     out = torch.einsum("bkgt,bktd->bkgd", probs, v_cache)
     return out.reshape(b, h, hd)
+
+
+def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """x: (T, d); scale: (d,) → x·rsqrt(mean(x²) + eps)·scale, computed in
+    float32, returned in x's dtype."""
+    x32 = x.float()
+    y = x32 * torch.rsqrt(x32.square().mean(-1, keepdim=True) + eps)
+    return (y * scale.float()).to(x.dtype)
+
+
+def moe_gating_ref(logits: torch.Tensor, top_k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """logits: (T, E) → (gates (T, k) float32, ids (T, k) int32).
+
+    The arithmetic of the Pallas body: a float32 softmax divided out before
+    any selection, then k passes of argmax (``torch.argmax`` returns the
+    first maximum, so a tie goes to the lowest index) with the chosen entry
+    set to -1 between passes, and the k gates renormalised by their sum
+    (at least 1e-9).  ``torch.topk`` is not used: it promises no order on
+    ties."""
+    x = logits.float()
+    p = torch.exp(x - x.max(-1, keepdim=True).values)
+    work = p / p.sum(-1, keepdim=True)
+    gsum = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
+    gates, ids = [], []
+    for _ in range(top_k):
+        best = torch.argmax(work, dim=-1, keepdim=True)
+        val = work.gather(-1, best)[:, 0]
+        gates.append(val)
+        ids.append(best[:, 0].to(torch.int32))
+        gsum = gsum + val
+        work = work.scatter(-1, best, -1.0)
+    g = torch.stack(gates, dim=-1) / torch.clamp_min(gsum, 1e-9)[:, None]
+    return g, torch.stack(ids, dim=-1)

@@ -56,6 +56,17 @@ def length_sampler(rng: np.random.Generator) -> int:
     return int(np.clip(rng.normal(200, 30), 4, 256))
 
 
+def serve_config(arch: str):
+    """The config the CLI serves: the reference CLI's size rule, which cuts
+    an arch above 500 M parameters to ``reduced()`` with a vocabulary of at
+    most 8192 (``repro.launch.serve``).  A full-width model is served by
+    building :class:`TorchServingEngine` directly."""
+    cfg = get_config(arch)
+    if cfg.n_params_estimate > 500e6:
+        cfg = cfg.reduced(vocab_size=min(cfg.vocab_size, 8192))
+    return cfg
+
+
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="orloj_gpt", choices=ARCHS)
@@ -71,7 +82,7 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
 
-    cfg = get_config(args.arch)
+    cfg = serve_config(args.arch)
     ecfg = EngineConfig()
     engine = TorchServingEngine(cfg, ecfg, seed=args.seed, device=args.device)
     print(f"profiling {cfg.name} latency curve on {engine.device} ...")

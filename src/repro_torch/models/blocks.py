@@ -1,7 +1,8 @@
-"""Decoder blocks of the port: the standard attention + dense-MLP block.
+"""Decoder blocks of the port: the attention block with a dense MLP, an MoE
+layer, or both (Arctic's dense residual beside the MoE).
 
-The MoE, Hymba and xLSTM blocks of :mod:`repro.models.blocks` are not
-ported yet (ROADMAP A7–A8) and raise."""
+The Hymba and xLSTM blocks of :mod:`repro.models.blocks` are not ported
+yet (ROADMAP A8) and raise."""
 
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ from typing import Any
 
 import torch
 
+from . import moe as moe_lib
 from .config import ModelConfig
 from .layers import attention_apply, init_attention, init_mlp, init_norm, mlp_apply, norm_apply
 
@@ -21,8 +23,6 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.block_pattern} blocks are not ported yet: ROADMAP A8 (SSM and recurrent cells)"
         )
-    if cfg.is_moe:
-        raise NotImplementedError("MoE blocks are not ported yet: ROADMAP A7 (MoE)")
 
 
 def init_block(gen: torch.Generator, cfg: ModelConfig, layer_idx: int) -> Params:
@@ -31,7 +31,11 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, layer_idx: int) -> Params
     p: Params = {"norm1": init_norm(gen, d, cfg.norm)}
     p["attn"] = init_attention(gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim)
     p["norm2"] = init_norm(gen, d, cfg.norm)
-    if cfg.mlp != "none":
+    if cfg.is_moe:
+        p["moe"] = moe_lib.init_moe(gen, d, cfg.d_ff, cfg.n_experts)
+        if cfg.moe_dense_residual:
+            p["mlp"] = init_mlp(gen, d, cfg.d_ff, cfg.mlp)
+    elif cfg.mlp != "none":
         p["mlp"] = init_mlp(gen, d, cfg.d_ff, cfg.mlp)
     return p
 
@@ -52,7 +56,15 @@ def block_apply(
         softcap=cfg.logit_softcap,
         repeat_kv=cfg.gqa_repeat_kv,
     )
-    if cfg.mlp != "none":
+    if cfg.is_moe:
+        h2 = norm_apply(params["norm2"], x, cfg.norm)
+        y, aux = moe_lib.moe_apply(
+            params["moe"], h2, top_k=cfg.top_k, capacity_factor=cfg.capacity_factor
+        )
+        if cfg.moe_dense_residual:
+            y = y + mlp_apply(params["mlp"], h2, cfg.mlp)
+        x = x + y
+    elif cfg.mlp != "none":
         h2 = norm_apply(params["norm2"], x, cfg.norm)
         x = x + mlp_apply(params["mlp"], h2, cfg.mlp)
     return x, aux

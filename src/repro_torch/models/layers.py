@@ -6,7 +6,8 @@ generator's device), ``*_apply`` consumes it.  The weights keep the JAX
 layouts: ``wq``/``wk``/``wv`` are (d, heads, head_dim), ``wo`` is
 (heads, head_dim, d), MLP weights are (in, out), ``embed.table`` is
 (vocab, d).  Prefill attention goes through the flash-attention kernel
-(:func:`repro_torch.kernels.ops.flash_attention`).
+(:func:`repro_torch.kernels.ops.flash_attention`) and RMSNorm through the
+rmsnorm kernel (:func:`repro_torch.kernels.ops.rmsnorm`).
 """
 
 from __future__ import annotations
@@ -30,7 +31,8 @@ def _init(gen: torch.Generator, shape, scale=None) -> torch.Tensor:
     """Normal(0, 1)·scale, scale 1/sqrt(shape[0]) by default (as
     ``repro.models.layers._init``)."""
     scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
-    return torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32) * scale
+    # Scaled in place: a full-width expert stack is 17.8 GB per weight.
+    return torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32).mul_(scale)
 
 
 # --------------------------------------------------------------- norms
@@ -46,12 +48,12 @@ def init_norm(gen: torch.Generator, d: int, kind: str) -> Params:
 
 
 def norm_apply(params: Params, x: torch.Tensor, kind: str, eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm goes through the rmsnorm kernel; the layernorms are plain."""
+    if kind == "rmsnorm":
+        return ops.rmsnorm(x, params["scale"], eps=eps)
     dtype = x.dtype
     x32 = x.float()
-    if kind == "rmsnorm":
-        y = x32 * torch.rsqrt(x32.square().mean(-1, keepdim=True) + eps)
-        y = y * params["scale"]
-    elif kind in ("layernorm", "nonparam_ln"):
+    if kind in ("layernorm", "nonparam_ln"):
         mu = x32.mean(-1, keepdim=True)
         var = x32.var(-1, keepdim=True, correction=0)  # population variance
         y = (x32 - mu) * torch.rsqrt(var + eps)

@@ -3,9 +3,10 @@
 Every test here is marked ``cuda`` and skips on a host without a CUDA
 device.  The file imports no JAX, so it also runs on a card's host that
 has none: ``python -m pytest -q -m cuda tests/test_torch_cuda.py``.
-Tolerances: float32 1e-4 (the kernel sums in another order than the
-plain version's matrix products), bfloat16 2e-2 (one bf16 rounding of the
-probabilities in the plain version).
+Tolerances: float32 1e-4 for attention (the kernel sums in another order
+than the plain version's matrix products) and 1e-5 for RMSNorm and the
+gates (one sum per row in another order), bfloat16 2e-2 (one bf16 rounding
+of the probabilities or the output); the gating's expert ids must be equal.
 """
 
 import pytest
@@ -14,7 +15,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import decode_attention as dec_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
+from repro_torch.kernels import moe_gating as gating_mod  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import rmsnorm as rms_mod  # noqa: E402
 
 
 @pytest.fixture
@@ -34,6 +37,7 @@ def _randn(gen, shape, dev, dtype=torch.float32):
     "b,h,kv,s,hd,dtype,window,lengths",
     [
         (8, 12, 12, 256, 64, torch.float32, 0, None),  # the prefill path's largest batch
+        (8, 56, 8, 256, 128, torch.float32, 0, None),  # Arctic's, GQA 7:1
         (2, 8, 2, 256, 64, torch.float32, 0, None),  # GQA 4:1
         (2, 4, 4, 256, 64, torch.bfloat16, 0, None),
         (2, 4, 2, 300, 128, torch.float32, 0, None),  # ragged S, hd 128
@@ -75,6 +79,7 @@ def test_flash_kernel_takes_strided_views_and_empty_rows(cuda_device):
     "b,h,kv,s,hd,valid,dtype",
     [
         (8, 12, 12, 256, 64, None, torch.float32),  # the decode path's shape
+        (8, 56, 8, 256, 128, None, torch.float32),  # Arctic's: GQA 7:1, one head per pass
         (4, 12, 12, 300, 64, None, torch.float32),  # ragged S
         (4, 12, 12, 256, 64, [0, 77, 0, 256], torch.float32),  # empty rows
         (2, 8, 2, 512, 64, None, torch.bfloat16),  # GQA 4:1
@@ -104,9 +109,64 @@ def test_decode_kernel_matches_plain(cuda_device, b, h, kv, s, hd, valid, dtype)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize(
+    "t,d,dtype",
+    [
+        (2048, 7168, torch.float32),  # Arctic's prefill batch (8, 256)
+        (2048, 7168, torch.bfloat16),
+        (300, 7168, torch.float32),  # ragged T
+        (64, 896, torch.float32),
+        (7, 1024, torch.float32),
+        (5, 30, torch.float32),  # d not a multiple of 4: scalar loads
+    ],
+)
+def test_rmsnorm_kernel_matches_plain(cuda_device, t, d, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    x = _randn(g, (t, d), cuda_device, dtype) * 3
+    scale = _randn(g, (d,), cuda_device)
+    before = rms_mod.launches
+    out = ops.rmsnorm(x, scale, eps=1e-5)
+    torch.cuda.synchronize()
+    assert rms_mod.launches == before + 1
+    assert out.dtype == dtype and out.shape == x.shape
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(out.float(), ref.rmsnorm_ref(x, scale, 1e-5).float(), rtol=tol, atol=tol)
+
+
+def _tie_logits(dev):
+    logits = torch.zeros((6, 16), device=dev)
+    logits[1] = 3.0
+    logits[2, [3, 9, 12]] = 5.0
+    logits[3, [15, 0]] = 2.0
+    logits[4] = torch.arange(16, device=dev) % 4
+    logits[5, ::2] = -1.0
+    return logits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,e,k", [(2048, 128, 2), (256, 16, 4), (256, 8, 1), (0, 16, 4)])
+def test_moe_gating_kernel_matches_plain(cuda_device, t, e, k):
+    """t = 0 stands for the tie case: rows of equal logits and duplicated maxima."""
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    logits = _tie_logits(cuda_device) if t == 0 else _randn(g, (t, e), cuda_device) * 2
+    before = gating_mod.launches
+    gates, ids = ops.moe_gating(logits, k)
+    torch.cuda.synchronize()
+    assert gating_mod.launches == before + 1
+    assert gates.dtype == torch.float32 and ids.dtype == torch.int32 and ids.shape == (logits.shape[0], k)
+    wg, wi = ref.moe_gating_ref(logits, k)
+    assert torch.equal(ids, wi)
+    torch.testing.assert_close(gates, wg, rtol=1e-5, atol=1e-5)
+    if t == 0:
+        assert ids[:3].tolist() == [[0, 1, 2, 3], [0, 1, 2, 3], [3, 9, 12, 0]]
+
+
+@pytest.mark.cuda
 def test_kernel_wrappers_reject_mixed_devices(cuda_device):
     q = torch.zeros((1, 2, 16, 64), device=cuda_device)
     with pytest.raises(ValueError, match="one CUDA device"):
         ops.flash_attention(q, q, q, torch.zeros((1,), dtype=torch.int32))
     with pytest.raises(ValueError, match="one CUDA device"):
         ops.decode_attention(q[:, :, 0].contiguous(), q, q, torch.zeros((1,), dtype=torch.int32))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ops.rmsnorm(q[0, 0], torch.ones(64))

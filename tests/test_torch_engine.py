@@ -8,7 +8,9 @@ engine's for a seed.
 """
 
 import ast
+import dataclasses
 import pathlib
+import sys
 
 import numpy as np
 import pytest
@@ -17,6 +19,8 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
+import repro.launch.serve as jax_serve  # noqa: E402
+import repro_torch.launch.serve as torch_serve  # noqa: E402
 from repro.serving.engine import DecodeJaxExecutor, ServingEngine  # noqa: E402
 from repro_torch.core import EmpiricalDistribution, OrlojScheduler, SchedulerConfig  # noqa: E402
 from repro_torch.core.tokensched import (  # noqa: E402
@@ -205,6 +209,42 @@ def test_serve_cli_builds_every_scheduler(name):
     assert sched is not None
 
 
+class _Picked(Exception):
+    """Raised by a stand-in engine to stop a CLI once it has chosen its config."""
+
+
+def _config_picked_by(module, engine_attr, argv, monkeypatch):
+    picked = {}
+
+    def stand_in(cfg, *args, **kwargs):
+        picked["cfg"] = cfg
+        raise _Picked
+
+    monkeypatch.setattr(module, engine_attr, stand_in)
+    monkeypatch.setattr(sys, "argv", ["serve", *argv])
+    with pytest.raises(_Picked):
+        module.main()
+    return picked["cfg"]
+
+
+@pytest.mark.parametrize("arch", ["arctic_480b", "orloj_gpt"])
+def test_serve_cli_sizes_a_model_as_the_jax_cli_does(arch, monkeypatch):
+    """Above 500 M parameters both CLIs serve ``reduced()`` with a vocabulary
+    of at most 8192; orloj_gpt (134 M) is served whole."""
+    theirs = _config_picked_by(jax_serve, "ServingEngine", ["--arch", arch], monkeypatch)
+    ours = _config_picked_by(torch_serve, "TorchServingEngine", ["--arch", arch], monkeypatch)
+    assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+    if arch == "arctic_480b":
+        assert ours.n_experts == 4 and ours.vocab_size == 8192 and ours.d_model == 256
+
+
+def test_serve_cli_serves_reduced_arctic_on_the_cpu(capsys):
+    torch_serve.main(["--arch", "arctic_480b", "--device", "cpu", "--n", "6", "--scheduler", "edf"])
+    out = capsys.readouterr().out
+    assert "profiling arctic-480b-smoke latency curve on cpu" in out
+    assert "Eq.3 fit" in out and "edf" in out
+
+
 # ---------------------------------------------------------------- guards
 def test_default_device_is_the_card_and_raises_without_one(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -238,7 +278,8 @@ def test_port_imports_no_jax_and_nothing_of_the_reference():
 COPIES = [f"core/{m}.py" for m in (
     "__init__", "request", "distributions", "eventwheel", "requeststore", "hull",
     "priority", "profiler", "scheduler", "baselines", "eventloop", "tokensched",
-)] + ["serving/batcher.py", "serving/faults.py", "models/config.py", "configs/orloj_gpt.py"]
+)] + ["serving/batcher.py", "serving/faults.py", "models/config.py", "configs/orloj_gpt.py",
+     "configs/arctic_480b.py"]
 
 
 @pytest.mark.parametrize("rel", COPIES)

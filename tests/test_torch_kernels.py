@@ -1,11 +1,12 @@
-"""The port's attention kernels against the JAX reference.
+"""The port's kernels (attention, RMSNorm, MoE gating) against the JAX reference.
 
 On a host without a card, the port's wrappers take their plain PyTorch
 versions (the tensors lie on the CPU); these are held against
 ``repro.kernels.ref`` and against the Pallas kernels run by the Pallas
 interpreter, on the shapes of ``tests/test_kernels.py`` and with its
 tolerances (float32 2e-5: the two frameworks sum in another order;
-bfloat16 2e-2: one bf16 rounding of the probabilities).  The CUDA kernels
+bfloat16 2e-2: one bf16 rounding of the probabilities or the output).
+The gating's expert ids must be equal, ties included.  The CUDA kernels
 themselves are held against the plain versions on the card by
 ``tests/test_torch_cuda.py``.
 """
@@ -19,9 +20,12 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.moe_gating import moe_gating_pallas  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import decode_attention as dec_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
+from repro_torch.kernels import moe_gating as gating_mod  # noqa: E402
+from repro_torch.kernels import rmsnorm as rms_mod  # noqa: E402
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
@@ -178,6 +182,86 @@ def test_decode_plain_matches_flash_last_row():
     np.testing.assert_allclose(_np(full[:, :, -1]), _np(dec), rtol=2e-5, atol=2e-5)
 
 
+# ------------------------------------------------------------- rmsnorm
+@pytest.mark.parametrize("t,d", [(256, 128), (512, 1024), (64, 896), (7, 1024), (300, 7168)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_plain_matches_jax_ref(t, d, dtype):
+    """The shapes of ``test_kernels.py``, a ragged T and Arctic's width."""
+    rng = np.random.default_rng(6)
+    jx, tx = _pair(rng.normal(size=(t, d)) * 3, dtype)
+    scale = rng.normal(size=(d,)).astype(np.float32)
+    out = ops.rmsnorm(tx, torch.from_numpy(scale))
+    assert out.dtype == tx.dtype and out.shape == (t, d)
+    want = jref.rmsnorm_ref(jx, jnp.asarray(scale))
+    np.testing.assert_allclose(_np(out), _np(want), **_tol(dtype))
+
+
+@pytest.mark.parametrize("t,d", [(256, 128), (512, 1024), (64, 896)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_plain_matches_pallas_interpreter(t, d, dtype):
+    rng = np.random.default_rng(6)
+    jx, tx = _pair(rng.normal(size=(t, d)) * 3, dtype)
+    scale = rng.normal(size=(d,)).astype(np.float32)
+    want = jops.rmsnorm(jx, jnp.asarray(scale), use_pallas=True)
+    np.testing.assert_allclose(_np(ops.rmsnorm(tx, torch.from_numpy(scale))), _np(want), **_tol(dtype))
+
+
+def test_rmsnorm_plain_nd_input_and_eps():
+    """(..., d) is flattened to rows; eps is passed through (the models use
+    1e-5, the wrapper's default is the reference wrapper's 1e-6)."""
+    rng = np.random.default_rng(7)
+    jx, tx = _pair(rng.normal(size=(2, 128, 64)) * 1e-3)
+    scale = rng.normal(size=(64,)).astype(np.float32)
+    for eps in (1e-6, 1e-5):
+        out = ops.rmsnorm(tx, torch.from_numpy(scale), eps=eps)
+        assert out.shape == (2, 128, 64)
+        want = jops.rmsnorm(jx, jnp.asarray(scale), eps=eps, use_pallas=True)
+        np.testing.assert_allclose(_np(out), _np(want), rtol=2e-5, atol=2e-5)
+    loose = ops.rmsnorm(tx, torch.from_numpy(scale), eps=1e-5)
+    assert not torch.allclose(ops.rmsnorm(tx, torch.from_numpy(scale)), loose, rtol=1e-3, atol=0)
+
+
+# ------------------------------------------------------------ moe gating
+def _gating_pair(logits: np.ndarray, k: int):
+    got = ops.moe_gating(torch.from_numpy(logits), k)
+    want = moe_gating_pallas(jnp.asarray(logits), k, interpret=True)
+    return got, want
+
+
+@pytest.mark.parametrize("t,e,k", [(256, 16, 4), (512, 128, 2), (256, 8, 1)])
+def test_moe_gating_plain_matches_pallas_interpreter(t, e, k):
+    """Ids array-equal; gates within 1e-5 and normalised over the k."""
+    logits = np.random.default_rng(8).normal(size=(t, e)).astype(np.float32) * 2
+    (gates, ids), (wg, wi) = _gating_pair(logits, k)
+    assert gates.dtype == torch.float32 and ids.dtype == torch.int32 and ids.shape == (t, k)
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(wi))
+    np.testing.assert_allclose(gates.numpy(), np.asarray(wg), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(gates.sum(-1).numpy(), 1.0, rtol=1e-5)
+    rg, ri = jref.moe_gating_ref(jnp.asarray(logits), k)  # lax.top_k: the same ids
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(ri))
+    np.testing.assert_allclose(gates.numpy(), np.asarray(rg), rtol=1e-5, atol=1e-5)
+
+
+def test_moe_gating_plain_ties_go_to_the_lowest_index():
+    """Rows of equal logits and rows with duplicated maxima."""
+    e = 16
+    logits = np.zeros((8, e), np.float32)
+    logits[1] = 3.0
+    logits[2, [3, 9, 12]] = 5.0
+    logits[3, [15, 0]] = 2.0
+    logits[4, [7, 8]] = 1.0
+    logits[4, 2] = 4.0
+    logits[5] = np.arange(e) % 4  # every maximum four times
+    logits[6, ::2] = -1.0
+    logits[7] = np.random.default_rng(13).normal(size=e)
+    for k in (1, 2, 4):
+        (gates, ids), (wg, wi) = _gating_pair(logits, k)
+        np.testing.assert_array_equal(ids.numpy(), np.asarray(wi))
+        np.testing.assert_allclose(gates.numpy(), np.asarray(wg), rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(ids[:3].numpy(), [[0, 1, 2, 3], [0, 1, 2, 3], [3, 9, 12, 0]])
+    np.testing.assert_array_equal(ids[5].numpy(), [3, 7, 11, 15])
+
+
 # ---------------------------------------------------------- the wrappers
 def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     rng = np.random.default_rng(12)
@@ -190,7 +274,26 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     torch.testing.assert_close(
         d, ref.decode_attention_ref(qd, q, q, torch.tensor([9], dtype=torch.int32)), rtol=0, atol=0
     )
-    assert ops.launch_counts() == {"flash_attention": 0, "decode_attention": 0}
+    assert ops.launch_counts() == {
+        "flash_attention": 0, "decode_attention": 0, "rmsnorm": 0, "moe_gating": 0,
+    }
+
+
+def test_cpu_tensors_launch_neither_new_kernel():
+    rng = np.random.default_rng(14)
+    x = torch.from_numpy(rng.normal(size=(2, 5, 40)).astype(np.float32))
+    scale = torch.from_numpy(rng.normal(size=(40,)).astype(np.float32))
+    logits = torch.from_numpy(rng.normal(size=(10, 8)).astype(np.float32))
+    ops.reset_launch_counts()
+    y = ops.rmsnorm(x, scale, eps=1e-5)
+    gates, ids = ops.moe_gating(logits, 2)
+    torch.testing.assert_close(y, ref.rmsnorm_ref(x.reshape(10, 40), scale, 1e-5).reshape(x.shape),
+                               rtol=0, atol=0)
+    wg, wi = ref.moe_gating_ref(logits, 2)
+    assert torch.equal(ids, wi) and torch.equal(gates, wg)
+    assert ops.launch_counts() == {
+        "flash_attention": 0, "decode_attention": 0, "rmsnorm": 0, "moe_gating": 0,
+    }
 
 
 def test_other_devices_raise():
@@ -261,6 +364,44 @@ def test_decode_checks_reject_what_the_kernel_does_not_take(case):
         dec_mod.check_inputs(q, kc, kc, valid)
 
 
+@pytest.mark.parametrize("case", ["1d", "scale_shape", "float16", "scale_bf16", "noncontig", "empty"])
+def test_rmsnorm_checks_reject_what_the_kernel_does_not_take(case):
+    x, scale = torch.zeros((4, 64)), torch.ones(64)
+    if case == "1d":
+        x = torch.zeros(64)
+    elif case == "scale_shape":
+        scale = torch.ones(32)
+    elif case == "float16":
+        x = x.half()
+    elif case == "scale_bf16":
+        scale = scale.bfloat16()
+    elif case == "noncontig":
+        x = torch.zeros((64, 4)).T
+    elif case == "empty":
+        x = torch.zeros((0, 64))
+    with pytest.raises((ValueError, TypeError)):
+        rms_mod.check_inputs(x, scale)
+
+
+@pytest.mark.parametrize("case,k", [("ok", 2), ("k0", 0), ("k_over_e", 9), ("experts", 2),
+                                    ("float64", 2), ("noncontig", 2), ("3d", 2)])
+def test_moe_gating_checks_reject_what_the_kernel_does_not_take(case, k):
+    logits = torch.zeros((16, 8))
+    if case == "experts":
+        logits = torch.zeros((16, 257))
+    elif case == "float64":
+        logits = logits.double()
+    elif case == "noncontig":
+        logits = torch.zeros((8, 16)).T
+    elif case == "3d":
+        logits = torch.zeros((2, 8, 8))
+    if case == "ok":
+        gating_mod.check_inputs(logits, k)
+        return
+    with pytest.raises((ValueError, TypeError)):
+        gating_mod.check_inputs(logits, k)
+
+
 def test_build_command_targets_hopper(monkeypatch):
     monkeypatch.setattr(_build, "nvcc_path", lambda: "nvcc")
     for name in _build.KERNELS:
@@ -271,4 +412,5 @@ def test_build_command_targets_hopper(monkeypatch):
         assert cmd[-1].endswith(f"csrc/{name}.cu")
         assert out.parent.name == "repro_torch_kernels" and out.parent.parent.name == "build"
         assert _build.library_path(name) == out  # keyed by content: stable
-    assert _build.library_path("flash_attention") != _build.library_path("decode_attention")
+    assert len({_build.library_path(n) for n in _build.KERNELS}) == 4
+    assert set(_build.KERNELS) == set(ops.launch_counts())
