@@ -331,10 +331,16 @@ def phase_serve(engine, ecfg, label: str, must_launch: tuple[str, ...]) -> dict[
     reqs, hist = engine.make_requests(
         N_REQUESTS, lm, length_sampler=length_sampler, slo_scale=3.0, utilization=0.7, seed=0
     )
+    engine.executor.drain_measured()
     res = engine.serve(reqs, make_scheduler("orloj", lm, hist, ecfg.batch_sizes))
     counts = ops.launch_counts()
     log(f"{label}: orloj {res.summary()} n_total={res.n_total} conserved={res.conserved} "
         f"batches={res.n_batches} launches={counts}")
+    # How well Eq. 3 predicts the batches it was used to plan.
+    err = sorted(abs(ms - lm.batch_time([float(b)] * k)) / ms for k, b, ms in engine.executor.drain_measured())
+    if err:
+        log(f"{label}: Eq.3 relative error over the {len(err)} served batches: median "
+            f"{err[len(err) // 2]:.4f}, max {err[-1]:.4f}")
     if res.n_total != N_REQUESTS or not res.conserved:
         raise SystemExit(f"{label}: {res.n_total} of {N_REQUESTS} requests accounted, conserved={res.conserved}")
     for name in must_launch:

@@ -273,6 +273,9 @@ def test_port_imports_no_jax_and_nothing_of_the_reference():
                     bad.append(f"{path.relative_to(ROOT)}: {n}")
     assert bad == []
     assert len(_port_files()) > 20
+    covered = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    assert {"src/repro_torch/models/moe.py", "src/repro_torch/kernels/rmsnorm.py",
+            "src/repro_torch/kernels/moe_gating.py", "src/repro_torch/configs/arctic_480b.py"} <= covered
 
 
 COPIES = [f"core/{m}.py" for m in (
