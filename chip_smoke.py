@@ -351,22 +351,22 @@ def phase_serve(engine, ecfg, label: str, must_launch: tuple[str, ...]) -> dict[
 
 @contextlib.contextmanager
 def _routing_log():
-    """Records the (gates, ids) of every MoE layer's routing in a forward."""
-    from repro_torch.models import moe
+    """Records (router logits, gates, ids) of every MoE layer in a forward."""
+    from repro_torch.kernels import ops
 
     seen: list = []
-    route = moe.route
+    gating = ops.moe_gating
 
-    def recording(*args, **kwargs):
-        out = route(*args, **kwargs)
-        seen.append(out)
-        return out
+    def recording(logits, top_k):
+        gates, ids = gating(logits, top_k)
+        seen.append((logits, gates, ids))
+        return gates, ids
 
-    moe.route = recording
+    ops.moe_gating = recording
     try:
         yield seen
     finally:
-        moe.route = route
+        ops.moe_gating = gating
 
 
 def phase_card_vs_cpu(model, params, label: str) -> None:
@@ -577,7 +577,7 @@ def _release() -> None:
 
 
 def run_orloj_gpt(ecfg) -> list[dict[str, int]]:
-    """The dense path, as PR 11 left it: full-width orloj_gpt."""
+    """The dense path: full-width orloj_gpt."""
     from repro_torch.configs.orloj_gpt import CONFIG
     from repro_torch.serving.engine import TorchServingEngine
 

@@ -4,9 +4,9 @@
 // Replaces the TPU kernel src/repro/kernels/rmsnorm.py, function
 // rmsnorm_pallas (body `_kernel`).  That kernel took tiles of 256 rows into
 // VMEM and needed T % block_rows == 0.  Here one block owns one row, so any
-// T is served and nothing is padded; a row of d <= 1024 float32 values gets
-// one warp-sized multiple of threads, wider rows 256 threads that stride
-// over it.
+// T is served and nothing is padded.  A block has one thread per 4 elements
+// of the row (per element without 4-wide loads), rounded up to whole warps
+// and capped at 256 threads, which then stride over a wider row.
 //
 // What bounds it on the H100: bytes.  Each element is read once and written
 // once and takes ~4 flops, far below the ~20 float32 flops per byte at

@@ -47,14 +47,6 @@ def capacity(n_tokens: int, top_k: int, n_experts: int, cf: float) -> int:
     return max(8, (c + 7) // 8 * 8)  # a multiple of 8, as the reference pads it
 
 
-def route(params: Params, xt: torch.Tensor, top_k: int):
-    """Router logits (T, E) float32 and their top-k (gates, ids) through the
-    gating kernel.  xt: (T, d)."""
-    logits = (xt @ params["router"].to(xt.dtype)).float()
-    gates, ids = ops.moe_gating(logits, top_k)
-    return logits, gates, ids
-
-
 def moe_apply(
     params: Params,
     x: torch.Tensor,
@@ -69,7 +61,8 @@ def moe_apply(
     n_experts = params["router"].shape[1]
     t = bsz * s
     xt = x.reshape(t, d)
-    logits, gate_vals, expert_ids = route(params, xt, top_k)
+    logits = (xt @ params["router"].to(dtype)).float()
+    gate_vals, expert_ids = ops.moe_gating(logits, top_k)  # (T, k) each
 
     # Load-balance loss, from the full softmax (the gating kernel returns
     # only the k gates) and the first choice.  It feeds only the loss.

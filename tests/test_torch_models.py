@@ -232,7 +232,7 @@ def test_moe_apply_matches_jax(top_k, cf):
     assert y.shape == (2, 24, 64) and y.dtype == torch.float32
     _close_rel(y, want_y)
     np.testing.assert_allclose(aux.item(), float(want_aux), rtol=1e-5)
-    _, _, ids = tm.route(tp, tx.reshape(t, 64), top_k)
+    _, ids = ops.moe_gating(tx.reshape(t, 64) @ tp["router"], top_k)
     per_expert = np.bincount(ids.reshape(-1).numpy(), minlength=8)
     if cf == 0.25:
         assert cap == 8 and per_expert.max() > cap  # some assignments are dropped
