@@ -8,12 +8,17 @@ Phases, each reported on its own lines; any failure exits non-zero:
 1. card: the GPU's name and power limit (``nvidia-smi``), the torch, CUDA
    and nvcc versions;
 2. build: the four kernels (flash and decode attention, RMSNorm, MoE
-   gating) built from ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a;
+   gating) built from ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a,
+   with each attention kernel's registers, spills and static shared memory
+   from ``-Xptxas -v``;
 3. kernels vs plain: each CUDA kernel against its plain PyTorch version on
-   the card, at both models' shapes (attention in float32 to 1e-4: another
-   order of summation; RMSNorm and the gates in float32 to 1e-5: one row
-   sum in another order; bfloat16 to 2e-2: one bf16 rounding; the gating's
-   expert ids exactly);
+   the card, at both models' shapes and at the edges of their tilings (the
+   32-key bucket, S = 1, ragged S, groups of 1 to 8 query heads, empty and
+   full caches, caches shorter than one split) (attention in float32 to
+   1e-4: another order of summation, and the flash kernel's split-TF32
+   products; RMSNorm and the gates in float32 to 1e-5: one row sum in
+   another order; bfloat16 to 2e-2: one bf16 rounding; the gating's expert
+   ids exactly);
 4. orloj_gpt: full width (12 layers, d 768, 12 heads, vocab 32000, weights
    from a seeded ``torch.Generator``) profiled for Eq. 3 and serving 100
    requests under the Orloj scheduler; the logits of a small batch held
@@ -26,8 +31,11 @@ Phases, each reported on its own lines; any failure exits non-zero:
    check runs a second 1-layer full-width model with 8 experts and a
    512-word vocabulary, whose weights fit the host, and also holds the
    routing ids of both runs equal;
-6. the ``kernels`` line (JSON): launches on the main paths, kernel, plain
-   and library times, and the least time the card could take.
+6. one line per attention shape with the kernels' ratios to SDPA, to
+   their plain versions and to their bounds, then the ``kernels`` line
+   (JSON): launches on the main paths, kernel, plain and library times,
+   and the least time the card could take (for flash also on the tensor
+   cores: ``tc_bound_ms``).
 
 The launch counters are set to 0 just before each serve and token path
 and read just after; the line's launches are their sums.  Comparisons and
@@ -50,11 +58,15 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32
-# FLOP/s outside the tensor cores (the kernels compute in float32 on the
-# SIMT cores).
+# Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32
+# FLOP/s outside the tensor cores, and the dense tensor-core rates in TF32
+# and bf16.  `bound_ms` counts float32 work at the SIMT rate (as since the
+# port began); the flash kernel's `tc_bound_ms` counts it on the tensor
+# cores, three TF32 passes per float32 product.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
+BF16_FLOP_PER_S = 989e12
 F32_TOL, BF16_TOL = 1e-4, 2e-2
 ROW_TOL = 1e-5  # RMSNorm and the gates in float32: one row sum in another order
 LOGITS_TOL = 1e-3  # card vs CPU, float32 layers and a d-wide head
@@ -103,10 +115,10 @@ def time_ms(fn, reps: int = 20, graphs: int = 5) -> float:
     return start.elapsed_time(end) / (reps * graphs)
 
 
-def flash_bound(q, k, lengths, causal: bool, window: int) -> tuple[float, str]:
-    """Least time (ms) for flash attention on these inputs: q, k, v read
-    once and the output written once, and 4·hd FLOPs for each (query, key)
-    pair the masks let through (q·k and p·v)."""
+def flash_work(q, k, lengths, causal: bool, window: int) -> tuple[int, int]:
+    """(bytes, FLOPs) of flash attention on these inputs: q, k, v read once
+    and the output written once, and 4·hd FLOPs for each (query, key) pair
+    the masks let through (q·k and p·v)."""
     import torch
 
     b, h, s, hd = q.shape
@@ -122,7 +134,26 @@ def flash_bound(q, k, lengths, causal: bool, window: int) -> tuple[float, str]:
     pairs = sum(int(mask[:, : int(L)].sum()) for L in lens) * h
     elt = q.element_size()
     nbytes = elt * (2 * b * h * s * hd + 2 * b * kv * s * hd) + (0 if lengths is None else 4 * b)
-    return _bound(nbytes, 4 * hd * pairs)
+    return nbytes, 4 * hd * pairs
+
+
+def flash_bound(q, k, lengths, causal: bool, window: int) -> tuple[float, str]:
+    """Least time (ms) with the float32 work at the SIMT rate."""
+    return _bound(*flash_work(q, k, lengths, causal, window))
+
+
+def flash_tc_bound(q, k, lengths, causal: bool, window: int) -> tuple[float, str]:
+    """Least time (ms) with the work on the tensor cores: float32 as three
+    TF32 passes (the kernel's split-TF32 route), bf16 as one."""
+    import torch
+
+    nbytes, flops = flash_work(q, k, lengths, causal, window)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    if q.dtype == torch.float32:
+        t_ops = 3 * flops / TF32_FLOP_PER_S * 1e3
+    else:
+        t_ops = flops / BF16_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def decode_bound(q, k_cache, valid_len) -> tuple[float, str]:
@@ -185,6 +216,34 @@ def phase_build() -> None:
         for n, out in logs.items()
     }
     log(f"build: {', '.join(logs)} with nvcc for sm_90a in {secs:.2f} s; registers {regs}")
+    for name in ("flash_attention", "decode_attention"):
+        for fn, props in ptxas_report(logs[name]):
+            log(f"ptxas: {fn}: {props}")
+
+
+def ptxas_report(out: str) -> list[tuple[str, str]]:
+    """(kernel<template arguments>, registers, spills and static shared
+    memory) for each entry function in an ``-Xptxas -v`` log."""
+    import re
+
+    report, name, spill = [], None, ""
+    for ln in out.splitlines():
+        m = re.search(r"Function properties for .*?\d([a-z_]+_kernel)I(f|13__nv_bfloat16)((?:Li\d+E)+)", ln)
+        if m:
+            args = ["float" if m.group(2) == "f" else "bf16", *re.findall(r"Li(\d+)E", m.group(3))]
+            name = f"{m.group(1)}<{','.join(args)}>"
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and name:
+            spill = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            smem = re.search(r"(\d+) bytes smem", ln)
+            report.append((name, f"{m.group(1)} registers, {spill}, static smem "
+                                 f"{smem.group(1) if smem else 0} B"))
+            name = None
+    return report
 
 
 def _randn(gen, shape, dtype):
@@ -218,6 +277,10 @@ def phase_kernels_vs_plain() -> dict[str, float]:
          [256, 70, 17, 1, 200, 128, 64, 33], 0),
         ("window 64 (2,12,256,64) f32", 2, 12, 12, 256, 64, f32, None, 64),
         ("arctic (8,56->8,256,128) f32 causal", 8, 56, 8, 256, 128, f32, None, 0),
+        ("smallest bucket S=32 (8,12,32,64) f32", 8, 12, 12, 32, 64, f32, None, 0),
+        ("S=1 (3,4->2,1,64) f32", 3, 4, 2, 1, 64, f32, None, 0),
+        ("GQA 7:1 hd 128 lengths [256,131] window 96 f32", 2, 14, 2, 256, 128, f32, [256, 131], 96),
+        ("bf16 GQA 7:1 hd 128 (2,14->2,256,128)", 2, 14, 2, 256, 128, bf16, None, 0),
     ]
     for name, b, h, kv, s, hd, dt, lens, window in flash_cases:
         q = _randn(gen, (b, h, s, hd), dt)
@@ -239,25 +302,35 @@ def phase_kernels_vs_plain() -> dict[str, float]:
             main_err["arctic_flash_attention"] = err
 
     decode_cases = [
-        ("main path (8,12,256,64) f32", 12, 12, 256, 64, None),
-        ("S=300 f32", 12, 12, 300, 64, None),
-        ("valid_len 0 rows [0,77,0,256,5,0,1,128] f32", 12, 12, 256, 64, [0, 77, 0, 256, 5, 0, 1, 128]),
-        ("arctic (8,56->8,256,128) f32", 56, 8, 256, 128, None),
+        ("main path (8,12,256,64) f32", 8, 12, 12, 256, 64, None),
+        ("S=300 f32", 8, 12, 12, 300, 64, None),
+        ("valid_len 0 rows [0,77,0,256,5,0,1,128] f32", 8, 12, 12, 256, 64, [0, 77, 0, 256, 5, 0, 1, 128]),
+        ("arctic (8,56->8,256,128) f32", 8, 56, 8, 256, 128, None),
+        ("g 2 valid_len [0,256,31,33,96,97,128,200] f32", 8, 16, 8, 256, 128, [0, 256, 31, 33, 96, 97, 128, 200]),
+        ("g 4 (8,32->8,256,128) f32", 8, 32, 8, 256, 128, None),
+        ("g 7 valid_len [0,256,7,64,65,128,191,1] f32", 8, 56, 8, 256, 128, [0, 256, 7, 64, 65, 128, 191, 1]),
+        ("g 8 (4,32->4,256,64) f32", 4, 32, 4, 256, 64, None),
+        ("g 7 ragged S=300 (2,56->8,300,128) f32", 2, 56, 8, 300, 128, [300, 0]),
+        ("S=7 g 8 (2,16->2,7,64) f32", 2, 16, 2, 7, 64, [7, 0]),
+        ("cache shorter than one split (1,8->1,512,128) valid 20 f32", 1, 8, 1, 512, 128, [20]),
+        ("g 7 bf16 (8,56->8,256,128)", 8, 56, 8, 256, 128, None),
     ]
-    for name, h, kv, s, hd, valid in decode_cases:
-        q = _randn(gen, (8, h, hd), f32)
-        kc = _randn(gen, (8, kv, s, hd), f32)
-        vc = _randn(gen, (8, kv, s, hd), f32)
+    for name, b, h, kv, s, hd, valid in decode_cases:
+        dt = bf16 if "bf16" in name else f32
+        q = _randn(gen, (b, h, hd), dt)
+        kc = _randn(gen, (b, kv, s, hd), dt)
+        vc = _randn(gen, (b, kv, s, hd), dt)
         if valid is None:
-            vl = torch.randint(1, s + 1, (8,), generator=gen, device="cuda", dtype=torch.int32)
+            vl = torch.randint(1, s + 1, (b,), generator=gen, device="cuda", dtype=torch.int32)
         else:
             vl = torch.tensor(valid, dtype=torch.int32, device="cuda")
         out = dec.decode_attention_cuda(q, kc, vc, vl)
         want = ref.decode_attention_ref(q, kc, vc, vl)
         torch.cuda.synchronize()
-        err = (out - want).abs().max().item()
-        ok = math.isfinite(err) and err <= F32_TOL and bool((out[vl == 0] == 0).all())
-        log(f"kernel vs plain: decode_attention {name}: max_abs_err {err:.3e} (tol {F32_TOL}) {'ok' if ok else 'FAIL'}")
+        err = (out.float() - want.float()).abs().max().item()
+        tol = BF16_TOL if dt == bf16 else F32_TOL
+        ok = math.isfinite(err) and err <= tol and out.dtype == dt and bool((out[vl == 0] == 0).all())
+        log(f"kernel vs plain: decode_attention {name}: max_abs_err {err:.3e} (tol {tol}) {'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"decode_attention {name}")
         if name.startswith("main path"):
@@ -483,12 +556,15 @@ def _attention_entries(gen, b, h, kv, s, hd) -> tuple[dict, dict]:
     # SDPA's GQA needs the KV heads repeated; it is the yardstick only.
     kr, vr = (t.repeat_interleave(h // kv, dim=1) for t in (k, v))
     f_bound, f_by = flash_bound(q, k, None, True, 0)
+    tc_bound, tc_by = flash_tc_bound(q, k, None, True, 0)
     flash = {
         "ms": time_ms(lambda: fa.flash_attention_cuda(q, k, v)),
         "plain_ms": time_ms(lambda: ref.flash_attention_ref(q, k, v)),
         "bound_ms": f_bound, "bound_by": f_by,
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q, kr, vr, is_causal=True)),
+        "tc_bound_ms": tc_bound, "tc_bound_by": tc_by,
     }
+    flash["tc_roofline_share"] = tc_bound / flash["ms"]
     qd = _randn(gen, (b, h, hd), torch.float32)
     vl = torch.full((b,), s, dtype=torch.int32, device="cuda")  # the step at full capacity
     mask = (torch.arange(s, device="cuda")[None] < vl[:, None])[:, None, None, :]
@@ -501,6 +577,12 @@ def _attention_entries(gen, b, h, kv, s, hd) -> tuple[dict, dict]:
             lambda: F.scaled_dot_product_attention(qd[:, :, None], kr, vr, attn_mask=mask)
         ),
     }
+    log(f"attention ({b},{h}->{kv},{s},{hd}) f32, ratios in this call: "
+        f"flash/SDPA {flash['ms'] / flash['library_ms']:.3f}, flash/plain {flash['ms'] / flash['plain_ms']:.3f}, "
+        f"flash/tc_bound {flash['ms'] / tc_bound:.3f} (tc_bound {tc_bound:.5f} ms, {tc_by}), "
+        f"flash/bound {flash['ms'] / f_bound:.3f}; decode/SDPA {decode['ms'] / decode['library_ms']:.3f}, "
+        f"decode/plain {decode['ms'] / decode['plain_ms']:.3f}, decode/bound {decode['ms'] / d_bound:.3f} "
+        f"(bound {d_bound:.6f} ms, {d_by})")
     return flash, decode
 
 

@@ -50,6 +50,12 @@ def check_inputs(q, k, v, lengths) -> None:
         raise TypeError(f"q, k, v must share one of {list(DTYPES)}; got {q.dtype}, {k.dtype}, {v.dtype}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("the head dimension of q, k, v must be contiguous")
+    # The kernel copies rows with 16-byte cp.async: every row of q, k, v
+    # must start on a 16-byte boundary.
+    for t in (q, k, v):
+        steps = [st * t.element_size() for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
+        if t.data_ptr() % 16 or any(st % 16 for st in steps):
+            raise ValueError("every row of q, k, v must start on a 16-byte boundary (cp.async)")
     if lengths is not None:
         if lengths.shape != (b,) or lengths.dtype != torch.int32 or not lengths.is_contiguous():
             raise ValueError("lengths must be a contiguous (B,) int32 tensor")

@@ -43,6 +43,10 @@ def _randn(gen, shape, dev, dtype=torch.float32):
         (2, 4, 2, 300, 128, torch.float32, 0, None),  # ragged S, hd 128
         (4, 4, 4, 256, 64, torch.float32, 0, [256, 70, 17, 1]),
         (2, 4, 4, 256, 32, torch.float32, 64, None),  # sliding window
+        (8, 12, 12, 32, 64, torch.float32, 0, None),  # the smallest bucket: 32-row query tiles
+        (3, 4, 2, 1, 64, torch.float32, 0, None),  # S = 1
+        (2, 14, 2, 256, 128, torch.float32, 96, [256, 131]),  # GQA 7:1, hd 128, lengths and a window
+        (2, 14, 2, 256, 128, torch.bfloat16, 0, None),  # bf16 at hd 128, GQA 7:1
     ],
 )
 def test_flash_kernel_matches_plain(cuda_device, b, h, kv, s, hd, dtype, window, lengths):
@@ -85,6 +89,16 @@ def test_flash_kernel_takes_strided_views_and_empty_rows(cuda_device):
         (2, 8, 2, 512, 64, None, torch.bfloat16),  # GQA 4:1
         (2, 6, 2, 130, 128, None, torch.float32),  # GQA 3:1, hd 128
         (3, 4, 2, 7, 32, [7, 0, 3], torch.float32),  # GQA 2:1, hd 32, S < one tile
+        (8, 8, 8, 256, 64, [0, 256, 1, 255, 64, 65, 0, 256], torch.float32),  # g 1, split edges
+        (8, 16, 8, 256, 128, [0, 256, 31, 33, 96, 97, 128, 200], torch.float32),  # g 2
+        (8, 32, 8, 256, 128, [256, 0, 5, 64, 250, 129, 1, 256], torch.float32),  # g 4
+        (8, 56, 8, 256, 128, [0, 256, 7, 64, 65, 128, 191, 1], torch.float32),  # g 7 (Arctic)
+        (4, 32, 4, 256, 64, [256, 0, 100, 17], torch.float32),  # g 8
+        (2, 56, 8, 300, 128, [300, 0], torch.float32),  # g 7, ragged S, two rows: many splits
+        (2, 16, 2, 7, 64, [7, 0], torch.float32),  # S = 7, g 8
+        (1, 8, 1, 512, 128, [20], torch.float32),  # g 8, a cache shorter than one split
+        (8, 56, 8, 256, 128, None, torch.bfloat16),  # g 7 in bf16
+        (2, 4, 4, 1000, 128, [1000, 999], torch.float32),  # g 1 at hd 128: fewer tile slots, many steps
     ],
 )
 def test_decode_kernel_matches_plain(cuda_device, b, h, kv, s, hd, valid, dtype):
@@ -106,6 +120,22 @@ def test_decode_kernel_matches_plain(cuda_device, b, h, kv, s, hd, valid, dtype)
     torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
     if valid is not None:
         assert (out[torch.tensor(valid, device=cuda_device) == 0] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,kv,s", [(8, 8, 256), (8, 12, 256), (1, 1, 4096), (2, 8, 300), (2, 2, 32)])
+def test_decode_kernel_merges_any_number_of_tiles(cuda_device, b, kv, s):
+    """From one 32-key tile (no merge) to 128 of them, every cache slot valid."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    q = _randn(g, (b, 2 * kv, 64), cuda_device)
+    kc = _randn(g, (b, kv, s, 64), cuda_device)
+    vc = _randn(g, (b, kv, s, 64), cuda_device)
+    vl = torch.full((b,), s, dtype=torch.int32, device=cuda_device)
+    before = dec_mod.launches
+    out = ops.decode_attention(q, kc, vc, vl)
+    torch.cuda.synchronize()
+    assert dec_mod.launches == before + 1
+    torch.testing.assert_close(out, ref.decode_attention_ref(q, kc, vc, vl), rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.cuda

@@ -11,6 +11,8 @@ themselves are held against the plain versions on the card by
 ``tests/test_torch_cuda.py``.
 """
 
+import math
+
 import numpy as np
 import pytest
 
@@ -127,6 +129,74 @@ def test_flash_plain_fully_masked_rows_are_zero():
     assert (out[0] == 0).all()
     want = jref.flash_attention_ref(jq, jk, jv, causal=False, lengths=jnp.array(lens, jnp.int32))
     np.testing.assert_allclose(_np(out), _np(want), rtol=2e-5, atol=2e-5)
+
+
+# ------------------------------------ the flash kernel's split-TF32 products
+# The CUDA flash kernel computes float32 products on the tensor cores in
+# TF32 (10 mantissa bits).  Each operand x is split into big = tf32(x) and
+# small = tf32(x - big), and each product is big·big + big·small +
+# small·big.  These tests emulate that arithmetic on the CPU and record why
+# three passes are needed: one misses the float32 tolerance of 2e-5.
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """Round float32 to TF32 as ``cvt.rna.tf32.f32`` does: to nearest, ties
+    away from zero, keeping 10 mantissa bits (integer ops on the bits)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_matmul(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
+    """a @ b with TF32 operands and float32 sums: one pass (big·big) or the
+    kernel's three (small·big + big·small + big·big)."""
+    a_big, b_big = _tf32(a), _tf32(b)
+    if passes == 1:
+        return a_big @ b_big
+    a_small, b_small = _tf32(a - a_big), _tf32(b - b_big)
+    return a_small @ b_big + a_big @ b_small + a_big @ b_big
+
+
+def _tf32_flash(q, k, v, passes: int) -> torch.Tensor:
+    """Causal GQA attention with the kernel's arithmetic: TF32 products,
+    the scale after Q·Kᵀ, unnormalised probabilities into P·V, one division
+    at the end."""
+    b, h, s, hd = q.shape
+    g = h // k.shape[1]
+    k, v = k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1)
+    scores = _tf32_matmul(q, k.transpose(-1, -2), passes) / math.sqrt(hd)
+    mask = torch.ones((s, s), dtype=torch.bool).tril()
+    scores = torch.where(mask, scores, -1e30)
+    p = torch.where(mask, torch.exp(scores - scores.amax(-1, keepdim=True)), 0.0)
+    return _tf32_matmul(p, v, passes) / p.sum(-1, keepdim=True)
+
+
+def test_tf32_rounding_is_to_nearest_ties_away():
+    one = 1.0
+    x = torch.tensor([one + 2**-12, one + 2**-11, one + 3 * 2**-11, -(one + 2**-11), 2**-10 + 2**-21, 0.0])
+    want = torch.tensor([one, one + 2**-10, one + 2**-9, -(one + 2**-10), 2**-10 + 2**-20, 0.0])
+    assert torch.equal(_tf32(x), want)
+    y = torch.from_numpy(np.random.default_rng(0).normal(size=4096).astype(np.float32))
+    assert (_tf32(y) - y).abs().max() <= y.abs().max() * 2**-11
+    assert torch.all(_tf32(y).view(torch.int32) & 0x1FFF == 0)
+
+
+@pytest.mark.parametrize("b,h,kv,s,hd", [(2, 4, 4, 256, 64), (1, 7, 1, 256, 128)])
+def test_split_tf32_attention_matches_jax_ref(b, h, kv, s, hd):
+    rng = np.random.default_rng(0)
+    jq, tq = _pair(rng.normal(size=(b, h, s, hd)))
+    jk, tk = _pair(rng.normal(size=(b, kv, s, hd)))
+    jv, tv = _pair(rng.normal(size=(b, kv, s, hd)))
+    want = _np(jref.flash_attention_ref(jq, jk, jv))
+    np.testing.assert_allclose(_np(_tf32_flash(tq, tk, tv, passes=3)), want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("b,h,kv,s,hd", [(2, 4, 4, 256, 64), (1, 7, 1, 256, 128)])
+def test_one_tf32_pass_misses_the_float32_tolerance(b, h, kv, s, hd):
+    rng = np.random.default_rng(0)
+    jq, tq = _pair(rng.normal(size=(b, h, s, hd)))
+    jk, tk = _pair(rng.normal(size=(b, kv, s, hd)))
+    jv, tv = _pair(rng.normal(size=(b, kv, s, hd)))
+    want = _np(jref.flash_attention_ref(jq, jk, jv))
+    err = np.abs(_np(_tf32_flash(tq, tk, tv, passes=1)) - want).max()
+    assert err > 2e-5
 
 
 # ------------------------------------------------------- decode attention
@@ -313,6 +383,8 @@ def test_other_devices_raise():
         ("heads", ValueError),
         ("lengths_dtype", ValueError),
         ("inner_stride", ValueError),
+        ("unaligned_rows", ValueError),
+        ("unaligned_start", ValueError),
     ],
 )
 def test_flash_checks_reject_what_the_kernel_does_not_take(case, err):
@@ -331,6 +403,10 @@ def test_flash_checks_reject_what_the_kernel_does_not_take(case, err):
         lengths = torch.zeros((2,), dtype=torch.int64)
     elif case == "inner_stride":
         q = torch.zeros((2, 4, 64, 16)).transpose(2, 3)
+    elif case == "unaligned_rows":  # rows 66 floats apart: not a multiple of 16 bytes
+        q = torch.zeros((2, 4, 16, 66))[..., :64]
+    elif case == "unaligned_start":  # contiguous, but 4 bytes past a 16-byte boundary
+        k = torch.zeros(2 * 2 * 16 * 64 + 1)[1:].view(2, 2, 16, 64)
     with pytest.raises(err):
         fa_mod.check_inputs(q, k, k, lengths)
 
