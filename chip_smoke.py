@@ -9,8 +9,8 @@ Phases, each reported on its own lines; any failure exits non-zero:
    and nvcc versions;
 2. build: the four kernels (flash and decode attention, RMSNorm, MoE
    gating) built from ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a,
-   with each attention kernel's registers, spills and static shared memory
-   from ``-Xptxas -v``;
+   with each kernel's registers, spills and static shared memory from
+   ``-Xptxas -v``;
 3. kernels vs plain: each CUDA kernel against its plain PyTorch version on
    the card, at both models' shapes and at the edges of their tilings (the
    32-key bucket, S = 1, ragged S, groups of 1 to 8 query heads, empty and
@@ -211,13 +211,9 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     logs = _build.build_all()
     secs = time.perf_counter() - t0
-    regs = {
-        n: sorted({ln.split("Used ")[1].split(",")[0] for ln in out.splitlines() if "Used " in ln})
-        for n, out in logs.items()
-    }
-    log(f"build: {', '.join(logs)} with nvcc for sm_90a in {secs:.2f} s; registers {regs}")
-    for name in ("flash_attention", "decode_attention"):
-        for fn, props in ptxas_report(logs[name]):
+    log(f"build: {', '.join(logs)} with nvcc for sm_90a in {secs:.2f} s")
+    for out in logs.values():
+        for fn, props in ptxas_report(out):
             log(f"ptxas: {fn}: {props}")
 
 
@@ -228,9 +224,9 @@ def ptxas_report(out: str) -> list[tuple[str, str]]:
 
     report, name, spill = [], None, ""
     for ln in out.splitlines():
-        m = re.search(r"Function properties for .*?\d([a-z_]+_kernel)I(f|13__nv_bfloat16)((?:Li\d+E)+)", ln)
+        m = re.search(r"Function properties for .*?\d([a-z_]+_kernel)I(f|13__nv_bfloat16)((?:L[a-z]\d+E)+)", ln)
         if m:
-            args = ["float" if m.group(2) == "f" else "bf16", *re.findall(r"Li(\d+)E", m.group(3))]
+            args = ["float" if m.group(2) == "f" else "bf16", *re.findall(r"L[a-z](\d+)E", m.group(3))]
             name = f"{m.group(1)}<{','.join(args)}>"
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
