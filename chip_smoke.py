@@ -18,7 +18,8 @@ Phases, each reported on its own lines; any failure exits non-zero:
    1e-4: another order of summation, and the flash kernel's split-TF32
    products; RMSNorm and the gates in float32 to 1e-5: one row sum in
    another order; bfloat16 to 2e-2: one bf16 rounding; the gating's expert
-   ids exactly);
+   ids exactly, also for ragged T, E of 3, 130 and 256, k == E, bf16,
+   -inf logits and rows off 16 bytes);
 4. orloj_gpt: full width (12 layers, d 768, 12 heads, vocab 32000, weights
    from a seeded ``torch.Generator``) profiled for Eq. 3 and serving 100
    requests under the Orloj scheduler; the logits of a small batch held
@@ -35,7 +36,9 @@ Phases, each reported on its own lines; any failure exits non-zero:
    their plain versions and to their bounds, then the ``kernels`` line
    (JSON): launches on the main paths, kernel, plain and library times,
    and the least time the card could take (for flash also on the tensor
-   cores: ``tc_bound_ms``).
+   cores: ``tc_bound_ms``; for the gating also its own duration from the
+   profiler, ``own_ms``, and both times at T = 8, 32, 256 and 2048,
+   ``by_T``).
 
 The launch counters are set to 0 just before each serve and token path
 and read just after; the line's launches are their sums.  Comparisons and
@@ -113,6 +116,30 @@ def time_ms(fn, reps: int = 20, graphs: int = 5) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / (reps * graphs)
+
+
+def own_ms(fn, kernel: str, calls: int = 20) -> float:
+    """Mean device duration (ms) of the kernel whose name holds ``kernel``,
+    over ``calls`` calls of ``fn``, from the profiler's CUPTI kernel
+    records: the kernel's own run, without the launch interval that each
+    call timed by :func:`time_ms` also holds.  The mean is over the kernel
+    records the profiler kept (it may drop one of a run); fails if it kept
+    fewer than half."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    found = [e for e in prof.key_averages() if kernel in e.key and e.device_type.name == "CUDA"]
+    n = sum(e.count for e in found)
+    if not calls / 2 <= n <= calls:
+        raise SystemExit(f"the profiler recorded {n} {kernel} kernels for {calls} calls")
+    return sum(e.device_time_total for e in found) / n / 1e3
 
 
 def flash_work(q, k, lengths, causal: bool, window: int) -> tuple[int, int]:
@@ -364,11 +391,30 @@ def phase_kernels_vs_plain() -> dict[str, float]:
     tie[3, [15, 0]] = 2.0
     tie[4] = torch.arange(16, device="cuda") % 4  # every value four times
     tie[5, ::2] = -1.0
+    neg_inf = _randn(gen, (4, 16), f32)
+    neg_inf[0, 1:] = -math.inf  # one finite logit: fifteen zero probabilities, tied
+    neg_inf[1, ::2] = -math.inf
+    neg_inf[2, :14] = -math.inf
+    neg_inf[3, [3, 7]] = -math.inf
+    unaligned = torch.empty(64 * 128 + 1, device="cuda")[1:].view(64, 128)
+    unaligned.copy_(_randn(gen, (64, 128), f32) * 2)  # rows off 16 bytes: the scalar loads
     gating_cases = [
         ("main path (2048,128) k 2", _randn(gen, (2048, 128), f32) * 2, 2),
         ("(256,16) k 4", _randn(gen, (256, 16), f32) * 2, 4),
         ("(256,8) k 1", _randn(gen, (256, 8), f32) * 2, 1),
         ("ties (6,16) k 4", tie, 4),
+        ("T=1 (1,128) k 2", _randn(gen, (1, 128), f32) * 2, 2),
+        ("T=7 (7,128) k 2", _randn(gen, (7, 128), f32) * 2, 2),
+        ("T=33 (33,128) k 2", _randn(gen, (33, 128), f32) * 2, 2),
+        ("E=3 (64,3) k 2", _randn(gen, (64, 3), f32) * 2, 2),
+        ("E=130 (64,130) k 4", _randn(gen, (64, 130), f32) * 2, 4),
+        ("E=256 (2048,256) k 2", _randn(gen, (2048, 256), f32) * 2, 2),
+        ("k == E (64,8) k 8", _randn(gen, (64, 8), f32) * 2, 8),
+        ("k == E (64,3) k 3", _randn(gen, (64, 3), f32) * 2, 3),
+        ("bf16 (2048,128) k 2", _randn(gen, (2048, 128), bf16) * 2, 2),
+        ("bf16 E=130 (33,130) k 2", _randn(gen, (33, 130), bf16) * 2, 2),
+        ("-inf logits (4,16) k 4", neg_inf, 4),
+        ("rows off 16 bytes (64,128) k 2", unaligned, 2),
     ]
     for name, logits, k in gating_cases:
         gates, ids = gating.moe_gating_cuda(logits, k)
@@ -525,8 +571,9 @@ def phase_where_time_goes(engine, label: str) -> None:
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        rows = [(e.key, e.device_time_total / 1e3) for e in prof.key_averages()
-                if e.device_time_total > 0 and e.device_type.name == "CUDA"]
+        events = [e for e in prof.key_averages()
+                  if e.device_time_total > 0 and e.device_type.name == "CUDA"]
+        rows = [(e.key, e.device_time_total / 1e3) for e in events]
         busy = sum(t for _, t in rows)
         top = sorted(rows, key=lambda r: -r[1])[:8]
         share = ", ".join(f"{k[:48]} {t:.4f} ms" for k, t in top)
@@ -536,6 +583,11 @@ def phase_where_time_goes(engine, label: str) -> None:
         else:
             log(f"{label} where the time goes: {name}: wall {wall_ms:.4f} ms, device busy {busy:.4f} ms "
                 f"(idle share {max(0.0, 1 - busy / wall_ms):.3f}); top: {share}")
+        gating = [e for e in events if "moe_gating_kernel" in e.key]
+        if gating:
+            log(f"{label} where the time goes: {name}: moe_gating kernel's own device time "
+                f"{sum(e.device_time_total for e in gating) / 1e3:.6f} ms over "
+                f"{sum(e.count for e in gating)} launches")
 
 
 def _attention_entries(gen, b, h, kv, s, hd) -> tuple[dict, dict]:
@@ -586,7 +638,7 @@ def phase_kernel_line(counts: dict[str, int], errs: dict[str, float]) -> dict:
     """One entry per kernel.  Flash and decode are timed at orloj_gpt's
     (8,12,256,64) as before and, under ``arctic``, at Arctic's
     (8,56->8,256,128); RMSNorm at Arctic's (2048, 7168) and the gating at
-    its (2048, 128) with k 2."""
+    its (2048, 128) with k 2, and also at T = 8, 32 and 256 (``by_T``)."""
     import torch
     import torch.nn.functional as F
 
@@ -626,22 +678,35 @@ def phase_kernel_line(counts: dict[str, int], errs: dict[str, float]) -> dict:
         "library_ms": time_ms(lambda: F.rms_norm(x, (7168,), weight=scale, eps=1e-5)),
     }
 
-    logits = _randn(gen, (2048, 128), torch.float32) * 2
+    # The gating over Arctic's serve range (T = 32 .. 2048 rows of 128
+    # experts, k 2) and one block's worth (T = 8, its latency floor): the
+    # time between graph-replayed launches and the kernel's own duration.
+    by_t = []
+    for t in (8, 32, 256, 2048):
+        lg = _randn(gen, (t, 128), torch.float32) * 2
+        bound, by = gating_bound(lg, 2)
+        by_t.append({
+            "T": t, "ms": time_ms(lambda lg=lg: gating.moe_gating_cuda(lg, 2)),
+            "own_ms": own_ms(lambda lg=lg: gating.moe_gating_cuda(lg, 2), "moe_gating_kernel"),
+            "bound_ms": bound, "bound_by": by,
+        })
+        log(f"moe_gating ({t},128) k 2 f32: graph replay {by_t[-1]['ms']:.6f} ms, own duration "
+            f"{by_t[-1]['own_ms']:.6f} ms, bound {bound:.6f} ms ({by})")
+    logits = lg  # (2048, 128)
 
     def composite():  # softmax -> topk -> renormalise: no single call does all three
         g, i = torch.topk(torch.softmax(logits, dim=-1), 2, dim=-1)
         return g / g.sum(-1, keepdim=True).clamp_min(1e-9), i
 
-    g_bound, g_by = gating_bound(logits, 2)
     moe_gating = {
         "name": "moe_gating", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/moe_gating.cu",
         "replaces": "src/repro/kernels/moe_gating.py:44",
         "launches": counts["moe_gating"], "max_abs_err": errs["moe_gating"],
-        "ms": time_ms(lambda: gating.moe_gating_cuda(logits, 2)),
+        "ms": by_t[-1]["ms"], "own_ms": by_t[-1]["own_ms"],
         "plain_ms": time_ms(lambda: ref.moe_gating_ref(logits, 2)),
-        "bound_ms": g_bound, "bound_by": g_by,
-        "library_ms": None, "composite_ms": time_ms(composite),
+        "bound_ms": by_t[-1]["bound_ms"], "bound_by": by_t[-1]["bound_by"],
+        "library_ms": None, "composite_ms": time_ms(composite), "by_T": by_t,
     }
     return {"kernels": [flash, decode, rmsnorm, moe_gating]}
 

@@ -173,22 +173,61 @@ def _tie_logits(dev):
     return logits
 
 
+def _neg_inf_logits(gen, dev):
+    logits = _randn(gen, (4, 16), dev)
+    logits[0, 1:] = -float("inf")  # one finite logit: fifteen zero probabilities, tied
+    logits[1, ::2] = -float("inf")
+    logits[2, :14] = -float("inf")
+    logits[3, [3, 7]] = -float("inf")
+    return logits
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("t,e,k", [(2048, 128, 2), (256, 16, 4), (256, 8, 1), (0, 16, 4)])
-def test_moe_gating_kernel_matches_plain(cuda_device, t, e, k):
-    """t = 0 stands for the tie case: rows of equal logits and duplicated maxima."""
+@pytest.mark.parametrize(
+    "t,e,k,case",
+    [
+        (2048, 128, 2, ""),
+        (256, 16, 4, ""),
+        (256, 8, 1, ""),
+        (6, 16, 4, "ties"),
+        (1, 128, 2, ""),  # T ragged against the rows of a block
+        (7, 128, 2, ""),
+        (33, 128, 2, ""),
+        (64, 3, 2, ""),  # the scalar layout
+        (64, 130, 4, ""),
+        (2048, 256, 2, ""),  # two float4 a lane
+        (64, 8, 8, ""),  # k == E
+        (64, 3, 3, ""),
+        (2048, 128, 2, "bf16"),
+        (33, 130, 2, "bf16"),
+        (4, 16, 4, "-inf"),
+        (64, 128, 2, "unaligned"),  # rows off 16 bytes: the scalar layout
+    ],
+)
+def test_moe_gating_kernel_matches_plain(cuda_device, t, e, k, case):
     g = torch.Generator(device=cuda_device).manual_seed(4)
-    logits = _tie_logits(cuda_device) if t == 0 else _randn(g, (t, e), cuda_device) * 2
+    if case == "ties":
+        logits = _tie_logits(cuda_device)
+    elif case == "-inf":
+        logits = _neg_inf_logits(g, cuda_device)
+    elif case == "unaligned":
+        logits = torch.empty(t * e + 1, device=cuda_device)[1:].view(t, e)
+        logits.copy_(_randn(g, (t, e), cuda_device) * 2)
+    else:
+        dtype = torch.bfloat16 if case == "bf16" else torch.float32
+        logits = _randn(g, (t, e), cuda_device, dtype) * 2
     before = gating_mod.launches
     gates, ids = ops.moe_gating(logits, k)
     torch.cuda.synchronize()
     assert gating_mod.launches == before + 1
-    assert gates.dtype == torch.float32 and ids.dtype == torch.int32 and ids.shape == (logits.shape[0], k)
+    assert gates.dtype == torch.float32 and ids.dtype == torch.int32 and ids.shape == (t, k)
     wg, wi = ref.moe_gating_ref(logits, k)
     assert torch.equal(ids, wi)
     torch.testing.assert_close(gates, wg, rtol=1e-5, atol=1e-5)
-    if t == 0:
+    if case == "ties":
         assert ids[:3].tolist() == [[0, 1, 2, 3], [0, 1, 2, 3], [3, 9, 12, 0]]
+    if case == "-inf":  # zero probabilities tie: they go in index order
+        assert ids[0].tolist() == [0, 1, 2, 3] and ids[2, 2:].tolist() == [0, 1]
 
 
 @pytest.mark.cuda

@@ -255,7 +255,8 @@ def test_default_device_is_the_card_and_raises_without_one(monkeypatch):
 
 
 def _port_files():
-    return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "scripts").glob("*.py")))
 
 
 def test_port_imports_no_jax_and_nothing_of_the_reference():
@@ -275,7 +276,8 @@ def test_port_imports_no_jax_and_nothing_of_the_reference():
     assert len(_port_files()) > 20
     covered = {p.relative_to(ROOT).as_posix() for p in _port_files()}
     assert {"src/repro_torch/models/moe.py", "src/repro_torch/kernels/rmsnorm.py",
-            "src/repro_torch/kernels/moe_gating.py", "src/repro_torch/configs/arctic_480b.py"} <= covered
+            "src/repro_torch/kernels/moe_gating.py", "src/repro_torch/configs/arctic_480b.py",
+            "scripts/gating_variants.py"} <= covered
 
 
 COPIES = [f"core/{m}.py" for m in (

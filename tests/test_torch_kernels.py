@@ -332,6 +332,118 @@ def test_moe_gating_plain_ties_go_to_the_lowest_index():
     np.testing.assert_array_equal(ids[5].numpy(), [3, 7, 11, 15])
 
 
+# ------------------------------------ the gating kernel's selection rule
+# The CUDA gating kernel gives each row to a warp.  A pass takes each lane's
+# best slot (a strict >, over slots in increasing expert order), then two
+# `redux.sync`: the maximum over the lanes of an int32 key that orders
+# floats as their values do, and the minimum of the expert index over the
+# lanes whose key equals it.  These tests emulate that arithmetic on the
+# CPU, lane by lane, in both layouts the kernel takes (lane l holding
+# experts l, l + 32, ... or 4l .. 4l+3 of each 128), and hold its ids to
+# the plain version and to the Pallas interpreter.
+def _order_key(x: torch.Tensor) -> torch.Tensor:
+    """The kernel's key: a float's bits, with a negative float's magnitude
+    bits flipped (an arithmetic shift spreads the sign bit)."""
+    b = x.contiguous().view(torch.int32)
+    return b ^ ((b >> 31) & 0x7FFFFFFF)
+
+
+def _key_value(key: torch.Tensor) -> torch.Tensor:
+    return (key ^ ((key >> 31) & 0x7FFFFFFF)).view(torch.float32)
+
+
+def _lane_layout(e: int, vec: int) -> torch.Tensor:
+    """(32, slots) expert index of each lane's slots, as the kernel lays
+    them out (VEC adjacent experts a load, chunks of 32·VEC); slots past E
+    hold an index >= E."""
+    chunks = -(-e // (32 * vec))
+    j = torch.arange(vec * chunks)
+    lane = torch.arange(32)[:, None]
+    return 32 * vec * (j // vec) + vec * lane + j % vec
+
+
+def _redux_gating(logits: torch.Tensor, k: int, vec: int):
+    """The kernel's logit maximum and selection, with the plain version's
+    exp, sum and division in between."""
+    x = logits.float()
+    expert = _lane_layout(x.shape[1], vec)  # (32, slots)
+    valid = expert < x.shape[1]
+    slots = torch.where(valid, x[:, expert.clamp_max(x.shape[1] - 1)], -math.inf)  # (T, 32, slots)
+    mx = _key_value(_order_key(slots.amax(-1)).max(-1).values)  # one __reduce_max_sync
+    p = torch.exp(x - mx[:, None])
+    p = p / p.sum(-1, keepdim=True)
+    slots = torch.where(valid, p[:, expert.clamp_max(x.shape[1] - 1)], -math.inf)
+    gsum = torch.zeros(x.shape[0])
+    gates, ids = [], []
+    for _ in range(k):
+        j = torch.argmax(slots, dim=-1, keepdim=True)  # the first maximum: a strict >
+        best = slots.gather(-1, j)[..., 0]  # (T, 32)
+        bi = expert.expand(x.shape[0], -1, -1).gather(-1, j)[..., 0]
+        key = _order_key(best)
+        top = key.max(-1).values  # __reduce_max_sync
+        idx = torch.where(key == top[:, None], bi, 2**31 - 1).min(-1).values  # __reduce_min_sync
+        val = _key_value(top)
+        gates.append(val)
+        ids.append(idx.to(torch.int32))
+        gsum = gsum + val
+        slots = torch.where(expert == idx[:, None, None], -1.0, slots)
+    return torch.stack(gates, -1) / torch.clamp_min(gsum, 1e-9)[:, None], torch.stack(ids, -1)
+
+
+def test_order_key_preserves_float_order():
+    tiny = torch.tensor(2.0**-149)  # the smallest subnormal
+    x = torch.tensor([-math.inf, -1.0, 0.0, tiny.item(), 1.0])
+    assert tiny.item() > 0 and torch.equal(x[3:4], tiny[None])
+    key = _order_key(x)
+    assert (key[1:] > key[:-1]).all()
+    assert torch.equal(_key_value(key).view(torch.int32), x.view(torch.int32))
+    y = torch.from_numpy(np.random.default_rng(3).normal(size=4096).astype(np.float32) * 10.0)
+    y = torch.cat([y, x, torch.tensor([-0.0, math.inf])])
+    ky = _order_key(y)
+    assert torch.equal(torch.sort(ky).values, _order_key(torch.sort(y).values))
+    assert torch.equal(_key_value(ky).view(torch.int32), y.view(torch.int32))
+
+
+def _neg_inf_logits() -> np.ndarray:
+    x = np.random.default_rng(21).normal(size=(4, 16)).astype(np.float32)
+    x[0, 1:] = -np.inf  # one finite logit: fifteen zero probabilities, tied
+    x[1, ::2] = -np.inf
+    x[2, :14] = -np.inf
+    x[3, [3, 7]] = -np.inf
+    return x
+
+
+def _gating_case(name: str) -> tuple[np.ndarray, int]:
+    from test_torch_cuda import _tie_logits
+
+    rng = np.random.default_rng(22)
+    return {
+        "ties": (_tie_logits("cpu").numpy(), 4),
+        "-inf logits": (_neg_inf_logits(), 4),
+        "k == E": (rng.normal(size=(16, 8)).astype(np.float32) * 2, 8),
+        "k == E, E 3": (rng.normal(size=(16, 3)).astype(np.float32) * 2, 3),
+        "random (64,128)": (rng.normal(size=(64, 128)).astype(np.float32) * 2, 2),
+        "random (64,130)": (rng.normal(size=(64, 130)).astype(np.float32) * 2, 4),
+        "random (64,256)": (rng.normal(size=(64, 256)).astype(np.float32) * 2, 2),
+    }[name]
+
+
+@pytest.mark.parametrize("vec", [1, 4])
+@pytest.mark.parametrize(
+    "case", ["ties", "-inf logits", "k == E", "k == E, E 3", "random (64,128)", "random (64,130)", "random (64,256)"]
+)
+def test_redux_selection_matches_plain_and_pallas(case, vec):
+    logits, k = _gating_case(case)
+    if vec == 4 and logits.shape[1] % 4:
+        vec = 1  # as the kernel's launcher: the float4 layout needs E % 4 == 0
+    gates, ids = _redux_gating(torch.from_numpy(logits), k, vec)
+    want_g, want_i = ref.moe_gating_ref(torch.from_numpy(logits), k)
+    assert torch.equal(ids, want_i)
+    assert torch.equal(gates, want_g)  # the same probabilities, summed in the same pass order
+    _, pallas_i = moe_gating_pallas(jnp.asarray(logits), k, interpret=True)
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(pallas_i))
+
+
 # ---------------------------------------------------------- the wrappers
 def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     rng = np.random.default_rng(12)
