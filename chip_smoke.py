@@ -19,7 +19,12 @@ Phases, each reported on its own lines; any failure exits non-zero:
    products; RMSNorm and the gates in float32 to 1e-5: one row sum in
    another order; bfloat16 to 2e-2: one bf16 rounding; the gating's expert
    ids exactly, also for ragged T, E of 3, 130 and 256, k == E, bf16,
-   -inf logits and rows off 16 bytes);
+   -inf logits and rows off 16 bytes); and the instantiations the models'
+   decode path adds: decode groups of 16 and 48 query heads, float32
+   queries over a bfloat16 cache (to 2e-2 against the plain version given
+   the same bf16 cache), flash at GQA 16:1, and both kernels with a softcap,
+   also at the shapes decode ≡ forward and the timed steps give them
+   (flash at S 8 and hd 128, decode over 8 slots and at B 1 over 256);
 4. orloj_gpt: full width (12 layers, d 768, 12 heads, vocab 32000, weights
    from a seeded ``torch.Generator``) profiled for Eq. 3 and serving 100
    requests under the Orloj scheduler; the logits of a small batch held
@@ -32,7 +37,14 @@ Phases, each reported on its own lines; any failure exits non-zero:
    check runs a second 1-layer full-width model with 8 experts and a
    512-word vocabulary, whose weights fit the host, and also holds the
    routing ids of both runs equal;
-6. one line per attention shape with the kernels' ratios to SDPA, to
+6. glm4: GLM-4-9B at full width and full depth (40 layers, d 4096, 32
+   query heads on 2 KV heads of 128, vocab 151552; 37.6 GB of float32
+   weights): decode ≡ forward, the decode step's time at B 1 and 8 (cache
+   256) beside the weight-read bound, its launches per step, a profile of
+   one step, peak memory; then its widths cut to 1 layer and a 512-word
+   vocabulary, decode steps on the card against the same weights on the
+   CPU with a float32 and a bfloat16 cache;
+7. one line per attention shape with the kernels' ratios to SDPA, to
    their plain versions and to their bounds, then the ``kernels`` line
    (JSON): launches on the main paths, kernel, plain and library times,
    and the least time the card could take (for flash also on the tensor
@@ -40,10 +52,18 @@ Phases, each reported on its own lines; any failure exits non-zero:
    profiler, ``own_ms``, and both times at T = 8, 32, 256 and 2048,
    ``by_T``).
 
-The launch counters are set to 0 just before each serve and token path
-and read just after; the line's launches are their sums.  Comparisons and
-timings run outside those windows.  The last line is
-``{"ok": true, "device": {...}}``.
+Phases 4 and 5 also run decode ≡ forward: a prompt of a few tokens for 2
+rows through ``Model.logits`` and the same tokens one by one through
+``init_cache(dtype=float32)`` and ``decode_step``, held to LOGITS_TOL;
+phase 6 runs it for glm4.  Every kernel call of those runs is recorded and
+held against its plain version on the call's own inputs, at the phase 3
+tolerances (one line per kernel and shape; ``path_calls_held`` and
+``path_max_abs_err`` in the ``kernels`` line).
+
+The launch counters are set to 0 just before each serve, token and
+decode ≡ forward path and read just after; the line's launches are their
+sums.  Comparisons and timings run outside those windows.  Each phase
+prints its seconds.  The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -75,6 +95,7 @@ ROW_TOL = 1e-5  # RMSNorm and the gates in float32: one row sum in another order
 LOGITS_TOL = 1e-3  # card vs CPU, float32 layers and a d-wide head
 N_REQUESTS, N_TOKEN_REQUESTS = 100, 32
 ARCTIC_LAYERS = 1  # 56.3 GB of float32 weights per layer: one fits the 80 GB card
+PROMPT = 8  # tokens of each row in decode ≡ forward
 
 
 def log(msg: str) -> None:
@@ -185,13 +206,12 @@ def flash_tc_bound(q, k, lengths, causal: bool, window: int) -> tuple[float, str
 
 def decode_bound(q, k_cache, valid_len) -> tuple[float, str]:
     """Least time (ms) for decode attention on these inputs: q and the
-    output once, the valid part of the K/V cache once, and 4·hd FLOPs per
-    (query head, valid key)."""
+    output once, the valid part of the K/V cache once (in the cache's own
+    type), and 4·hd FLOPs per (query head, valid key)."""
     b, h, hd = q.shape
     kv = k_cache.shape[1]
     valid = int(valid_len.clamp(0, k_cache.shape[2]).sum())
-    elt = q.element_size()
-    nbytes = elt * (2 * b * h * hd + 2 * valid * kv * hd) + 4 * b
+    nbytes = q.element_size() * 2 * b * h * hd + k_cache.element_size() * 2 * valid * kv * hd + 4 * b
     return _bound(nbytes, 4 * hd * valid * h)
 
 
@@ -251,9 +271,10 @@ def ptxas_report(out: str) -> list[tuple[str, str]]:
 
     report, name, spill = [], None, ""
     for ln in out.splitlines():
-        m = re.search(r"Function properties for .*?\d([a-z_]+_kernel)I(f|13__nv_bfloat16)((?:L[a-z]\d+E)+)", ln)
+        m = re.search(r"Function properties for .*?\d([a-z_]+_kernel)I((?:f|13__nv_bfloat16)+)((?:L[a-z]\d+E)+)", ln)
         if m:
-            args = ["float" if m.group(2) == "f" else "bf16", *re.findall(r"L[a-z](\d+)E", m.group(3))]
+            types = ["float" if t == "f" else "bf16" for t in re.findall(r"f|13__nv_bfloat16", m.group(2))]
+            args = [*types, *re.findall(r"L[a-z](\d+)E", m.group(3))]
             name = f"{m.group(1)}<{','.join(args)}>"
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
@@ -292,26 +313,32 @@ def phase_kernels_vs_plain() -> dict[str, float]:
     failures = []
 
     flash_cases = [
-        ("main path (8,12,256,64) f32 causal", 8, 12, 12, 256, 64, f32, None, 0),
-        ("GQA (2,8->2,256,64) f32", 2, 8, 2, 256, 64, f32, None, 0),
-        ("bf16 (8,12,256,64)", 8, 12, 12, 256, 64, bf16, None, 0),
-        ("ragged S=300 (2,12,300,64) f32", 2, 12, 12, 300, 64, f32, None, 0),
+        ("main path (8,12,256,64) f32 causal", 8, 12, 12, 256, 64, f32, None, 0, 0.0),
+        ("GQA (2,8->2,256,64) f32", 2, 8, 2, 256, 64, f32, None, 0, 0.0),
+        ("bf16 (8,12,256,64)", 8, 12, 12, 256, 64, bf16, None, 0, 0.0),
+        ("ragged S=300 (2,12,300,64) f32", 2, 12, 12, 300, 64, f32, None, 0, 0.0),
         ("lengths [256,70,17,1,200,128,64,33] f32", 8, 12, 12, 256, 64, f32,
-         [256, 70, 17, 1, 200, 128, 64, 33], 0),
-        ("window 64 (2,12,256,64) f32", 2, 12, 12, 256, 64, f32, None, 64),
-        ("arctic (8,56->8,256,128) f32 causal", 8, 56, 8, 256, 128, f32, None, 0),
-        ("smallest bucket S=32 (8,12,32,64) f32", 8, 12, 12, 32, 64, f32, None, 0),
-        ("S=1 (3,4->2,1,64) f32", 3, 4, 2, 1, 64, f32, None, 0),
-        ("GQA 7:1 hd 128 lengths [256,131] window 96 f32", 2, 14, 2, 256, 128, f32, [256, 131], 96),
-        ("bf16 GQA 7:1 hd 128 (2,14->2,256,128)", 2, 14, 2, 256, 128, bf16, None, 0),
+         [256, 70, 17, 1, 200, 128, 64, 33], 0, 0.0),
+        ("window 64 (2,12,256,64) f32", 2, 12, 12, 256, 64, f32, None, 64, 0.0),
+        ("arctic (8,56->8,256,128) f32 causal", 8, 56, 8, 256, 128, f32, None, 0, 0.0),
+        ("smallest bucket S=32 (8,12,32,64) f32", 8, 12, 12, 32, 64, f32, None, 0, 0.0),
+        ("S=1 (3,4->2,1,64) f32", 3, 4, 2, 1, 64, f32, None, 0, 0.0),
+        ("GQA 7:1 hd 128 lengths [256,131] window 96 f32", 2, 14, 2, 256, 128, f32, [256, 131], 96, 0.0),
+        ("bf16 GQA 7:1 hd 128 (2,14->2,256,128)", 2, 14, 2, 256, 128, bf16, None, 0, 0.0),
+        ("glm4 GQA 16:1 (2,32->2,256,128) f32", 2, 32, 2, 256, 128, f32, None, 0, 0.0),
+        ("glm4 decode ≡ forward (2,32->2,8,128) f32", 2, 32, 2, 8, 128, f32, None, 0, 0.0),
+        ("arctic decode ≡ forward (2,56->8,8,128) f32", 2, 56, 8, 8, 128, f32, None, 0, 0.0),
+        ("softcap 2 (2,8->2,256,64) lengths [256,100] f32", 2, 8, 2, 256, 64, f32, [256, 100], 0, 2.0),
+        ("softcap 2 smallest bucket (4,4,32,64) f32", 4, 4, 4, 32, 64, f32, None, 0, 2.0),
+        ("softcap 2 bf16 (2,8->2,256,128)", 2, 8, 2, 256, 128, bf16, None, 0, 2.0),
     ]
-    for name, b, h, kv, s, hd, dt, lens, window in flash_cases:
+    for name, b, h, kv, s, hd, dt, lens, window, cap in flash_cases:
         q = _randn(gen, (b, h, s, hd), dt)
         k = _randn(gen, (b, kv, s, hd), dt)
         v = _randn(gen, (b, kv, s, hd), dt)
         lt = None if lens is None else torch.tensor(lens, dtype=torch.int32, device="cuda")
-        out = fa.flash_attention_cuda(q, k, v, lt, causal=True, window=window)
-        want = ref.flash_attention_ref(q, k, v, lengths=lt, causal=True, window=window)
+        out = fa.flash_attention_cuda(q, k, v, lt, causal=True, window=window, softcap=cap)
+        want = ref.flash_attention_ref(q, k, v, lengths=lt, causal=True, window=window, softcap=cap)
         torch.cuda.synchronize()
         err = (out.float() - want.float()).abs().max().item()
         tol = BF16_TOL if dt == bf16 else F32_TOL
@@ -321,8 +348,10 @@ def phase_kernels_vs_plain() -> dict[str, float]:
             failures.append(f"flash_attention {name}")
         if name.startswith("main path"):
             main_err["flash_attention"] = err
-        if name.startswith("arctic"):
+        if name.startswith("arctic (8,56"):
             main_err["arctic_flash_attention"] = err
+        if name.startswith("glm4 GQA 16:1"):
+            main_err["glm4_flash_attention"] = err
 
     decode_cases = [
         ("main path (8,12,256,64) f32", 8, 12, 12, 256, 64, None),
@@ -337,21 +366,37 @@ def phase_kernels_vs_plain() -> dict[str, float]:
         ("S=7 g 8 (2,16->2,7,64) f32", 2, 16, 2, 7, 64, [7, 0]),
         ("cache shorter than one split (1,8->1,512,128) valid 20 f32", 1, 8, 1, 512, 128, [20]),
         ("g 7 bf16 (8,56->8,256,128)", 8, 56, 8, 256, 128, None),
+        ("glm4 g 16 (8,32->2,256,128) valid_len [0,256,31,33,96,97,128,200] f32", 8, 32, 2, 256, 128,
+         [0, 256, 31, 33, 96, 97, 128, 200]),
+        ("granite MQA g 48 (4,48->1,256,128) valid_len [256,0,77,255] f32", 4, 48, 1, 256, 128, [256, 0, 77, 255]),
+        ("g 16 decode ≡ forward (2,32->2,8,128) valid_len [1,8] f32", 2, 32, 2, 8, 128, [1, 8]),
+        ("g 16 timed step B 1 (1,32->2,256,128) valid_len [256] f32", 1, 32, 2, 256, 128, [256]),
+        ("f32 q, bf16 cache: glm4 ragged S=300 valid_len [300,0,1,299,33,64,150,0]", 8, 32, 2, 300, 128,
+         [300, 0, 1, 299, 33, 64, 150, 0]),
+        ("f32 q, bf16 cache: full (8,12,256,64)", 8, 12, 12, 256, 64, [256] * 8),
+        ("f32 q, bf16 cache: S=7 (3,4->2,7,32) valid_len [7,0,3]", 3, 4, 2, 7, 32, [7, 0, 3]),
+        ("softcap 2 (2,8->2,256,64) valid_len [256,40] f32", 2, 8, 2, 256, 64, [256, 40]),
+        ("softcap 2 f32 q, bf16 cache: glm4 (8,32->2,256,128)", 8, 32, 2, 256, 128,
+         [256, 0, 5, 64, 250, 129, 1, 256]),
     ]
     for name, b, h, kv, s, hd, valid in decode_cases:
-        dt = bf16 if "bf16" in name else f32
+        # The name says the types: "f32 q, bf16 cache", else one type (bf16
+        # where it says so); "softcap 2" caps the scores at 2.
+        dt = bf16 if "bf16" in name and "f32 q" not in name else f32
+        cdt = bf16 if "bf16" in name else f32
+        cap = 2.0 if "softcap 2" in name else 0.0
         q = _randn(gen, (b, h, hd), dt)
-        kc = _randn(gen, (b, kv, s, hd), dt)
-        vc = _randn(gen, (b, kv, s, hd), dt)
+        kc = _randn(gen, (b, kv, s, hd), cdt)
+        vc = _randn(gen, (b, kv, s, hd), cdt)
         if valid is None:
             vl = torch.randint(1, s + 1, (b,), generator=gen, device="cuda", dtype=torch.int32)
         else:
             vl = torch.tensor(valid, dtype=torch.int32, device="cuda")
-        out = dec.decode_attention_cuda(q, kc, vc, vl)
-        want = ref.decode_attention_ref(q, kc, vc, vl)
+        out = dec.decode_attention_cuda(q, kc, vc, vl, softcap=cap)
+        want = ref.decode_attention_ref(q, kc, vc, vl, softcap=cap)
         torch.cuda.synchronize()
         err = (out.float() - want.float()).abs().max().item()
-        tol = BF16_TOL if dt == bf16 else F32_TOL
+        tol = BF16_TOL if cdt == bf16 else F32_TOL
         ok = math.isfinite(err) and err <= tol and out.dtype == dt and bool((out[vl == 0] == 0).all())
         log(f"kernel vs plain: decode_attention {name}: max_abs_err {err:.3e} (tol {tol}) {'ok' if ok else 'FAIL'}")
         if not ok:
@@ -360,6 +405,10 @@ def phase_kernels_vs_plain() -> dict[str, float]:
             main_err["decode_attention"] = err
         if name.startswith("arctic"):
             main_err["arctic_decode_attention"] = err
+        if name.startswith("glm4"):
+            main_err["glm4_decode_attention"] = err
+        if name.startswith("f32 q, bf16 cache: glm4"):
+            main_err["glm4_bf16_cache_decode_attention"] = err
 
     rms_cases = [
         ("main path (2048,7168) f32", 2048, 7168, f32),
@@ -484,6 +533,96 @@ def _routing_log():
         ops.moe_gating = gating
 
 
+# Errors of the kernels' calls on the decode ≡ forward paths, each held
+# against its plain version on the call's own inputs: name -> (calls, max_abs_err).
+PATH_HELD: dict[str, tuple[int, float]] = {}
+
+
+def _clone(a):
+    import torch
+
+    return a.clone() if isinstance(a, torch.Tensor) else a
+
+
+@contextlib.contextmanager
+def _kernel_log():
+    """Records every call of the four kernels through ``repro_torch.kernels.ops``
+    (its inputs and its output, copied: the cache changes in place) for
+    :func:`_hold_path_calls`.  Only the wrappers' routes are wrapped: the
+    launches and their counts are the path's own."""
+    from repro_torch.kernels import ops
+
+    seen: list = []
+    wrapped = {name: getattr(ops, name) for name in ("flash_attention", "decode_attention",
+                                                      "rmsnorm", "moe_gating")}
+
+    def recorder(name, fn):
+        def call(*args, **kw):
+            inputs = ([_clone(a) for a in args], {k: _clone(v) for k, v in kw.items()})
+            out = fn(*args, **kw)
+            seen.append((name, inputs, tuple(_clone(o) for o in out) if isinstance(out, tuple)
+                         else _clone(out)))
+            return out
+        return call
+
+    for name, fn in wrapped.items():
+        setattr(ops, name, recorder(name, fn))
+    try:
+        yield seen
+    finally:
+        for name, fn in wrapped.items():
+            setattr(ops, name, fn)
+
+
+def _hold_path_calls(calls, label: str) -> None:
+    """Each recorded kernel call's output against the plain version on the
+    same inputs (attention to F32_TOL, or BF16_TOL over a bf16 input;
+    RMSNorm to ROW_TOL relative and absolute; the gating's ids exactly and
+    its gates to ROW_TOL), one line per kernel and shape."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    def plain(name, args, kw):
+        if name == "flash_attention":
+            q, k, v, *rest = args
+            lengths = rest[0] if rest else kw.pop("lengths", None)
+            return ref.flash_attention_ref(q, k, v, lengths=lengths, **kw)
+        if name == "decode_attention":
+            return ref.decode_attention_ref(*args, **kw)
+        if name == "rmsnorm":
+            x, scale = args
+            return ref.rmsnorm_ref(x.reshape(-1, x.shape[-1]), scale, kw.get("eps", 1e-6)).reshape(x.shape)
+        return ref.moe_gating_ref(*args, **kw)
+
+    groups: dict[tuple, list[float]] = {}
+    failures = []
+    for name, (args, kw), out in calls:
+        want = plain(name, args, dict(kw))
+        shape = ",".join(str(tuple(a.shape)) for a in args if isinstance(a, torch.Tensor) and a.dim() > 1)
+        dtypes = "/".join(sorted({str(a.dtype)[6:] for a in args if isinstance(a, torch.Tensor)
+                                  and a.is_floating_point()}))
+        if name == "moe_gating":
+            err = (out[0] - want[0]).abs().max().item()
+            ok = torch.equal(out[1], want[1]) and err <= ROW_TOL
+        else:
+            err = (out.float() - want.float()).abs().max().item()
+            if name == "rmsnorm":
+                ok = bool(torch.isclose(out.float(), want.float(), rtol=ROW_TOL, atol=ROW_TOL).all())
+            else:
+                ok = math.isfinite(err) and err <= (BF16_TOL if "bfloat16" in dtypes else F32_TOL)
+        groups.setdefault((name, shape, dtypes), []).append(err)
+        if not ok:
+            failures.append(f"{name} {shape} {dtypes}")
+    for (name, shape, dtypes), errs in groups.items():
+        n, worst = PATH_HELD.get(name, (0, 0.0))
+        PATH_HELD[name] = (n + len(errs), max(worst, max(errs)))
+        log(f"{label} kernels vs plain on the path's own inputs: {name} {shape} {dtypes}: {len(errs)} calls, "
+            f"max_abs_err {max(errs):.3e}")
+    if failures:
+        raise SystemExit(f"{label}: kernel calls of the path disagree with their plain versions: {failures}")
+
+
 def phase_card_vs_cpu(model, params, label: str) -> None:
     """What comes out is right: finite logits of the expected shape that
     agree with the same weights run through the plain path on the CPU, and,
@@ -565,33 +704,202 @@ def phase_where_time_goes(engine, label: str) -> None:
     dec._valid = torch.full_like(dec._valid, 256)
     for name, fn in (("prefill (8,256)", lambda: engine.executor._run(tokens)),
                      ("decode step (8 rows, cache 256)", dec._decode_once)):
+        _profile(fn, label, name)
+
+
+def _profile(fn, label: str, name: str) -> None:
+    """Wall time, device busy time, idle share and the top operations by
+    device time of one call of ``fn``, from torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_time_total > 0 and e.device_type.name == "CUDA"]
+    rows = [(e.key, e.device_time_total / 1e3) for e in events]
+    busy = sum(t for _, t in rows)
+    top = sorted(rows, key=lambda r: -r[1])[:8]
+    share = ", ".join(f"{k[:48]} {t:.4f} ms" for k, t in top)
+    if busy == 0:
+        log(f"{label} where the time goes: {name}: the profiler recorded no device time; "
+            f"wall {wall_ms:.4f} ms")
+    else:
+        log(f"{label} where the time goes: {name}: wall {wall_ms:.4f} ms, device busy {busy:.4f} ms "
+            f"(idle share {max(0.0, 1 - busy / wall_ms):.3f}) in {sum(e.count for e in events)} device "
+            f"operations; top: {share}")
+    gating = [e for e in events if "moe_gating_kernel" in e.key]
+    if gating:
+        log(f"{label} where the time goes: {name}: moe_gating kernel's own device time "
+            f"{sum(e.device_time_total for e in gating) / 1e3:.6f} ms over "
+            f"{sum(e.count for e in gating)} launches")
+
+
+def phase_decode_matches_forward(model, params, label: str) -> dict[str, int]:
+    """Decode ≡ forward on the card: PROMPT tokens of 2 rows through
+    ``Model.logits``, and the same tokens one at a time through a float32
+    cache and ``decode_step``, held to LOGITS_TOL.  An MoE forward routes
+    2·PROMPT tokens against a capacity C, a step 2 against its own: the
+    forward's dropped assignments are printed, and a row is held only
+    before its first dropped one (attention carries a drop to every later
+    position)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.moe import capacity
+
+    cfg = model.cfg
+    rng = np.random.default_rng(1)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(2, PROMPT))).to(model.device)
+    ops.reset_launch_counts()
+    with torch.no_grad(), _kernel_log() as calls, _routing_log() as routes:
+        full = model.logits(params, {"tokens": tokens})
+        n_forward = len(routes)
+        cache = model.init_cache(2, PROMPT, dtype=torch.float32)
+        steps = [model.decode_step(params, tokens[:, i : i + 1], cache, i)[0][:, 0]
+                 for i in range(PROMPT)]
+        dec = torch.stack(steps, 1)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    held = torch.ones((2, PROMPT), dtype=torch.bool)
+    dropped = 0
+    for _, _, ids in routes[:n_forward]:
+        flat = ids.reshape(-1).long().cpu()
+        onehot = F.one_hot(flat, cfg.n_experts)
+        pos_in_e = (onehot.cumsum(0) - onehot).gather(1, flat[:, None])[:, 0]
+        drop = pos_in_e >= capacity(2 * PROMPT, cfg.top_k, cfg.n_experts, cfg.capacity_factor)
+        dropped += int(drop.sum())
+        held &= drop.reshape(2, PROMPT, cfg.top_k).any(-1).cumsum(1) == 0
+    if not held.any():
+        raise SystemExit(f"{label} decode ≡ forward: every position follows a dropped assignment")
+    err = (dec - full).abs()[held.to(dec.device)].max().item()
+    ok = dec.shape == full.shape and bool(torch.isfinite(dec).all()) and err <= LOGITS_TOL
+    moe = (f"; the forward dropped {dropped} of {2 * PROMPT * cfg.top_k * n_forward} assignments, "
+           f"{int(held.sum())} of {held.numel()} positions held") if cfg.is_moe else ""
+    log(f"{label} decode ≡ forward: {PROMPT} tokens × 2 rows, {cfg.n_layers} layers, float32 cache: "
+        f"max |logit| {full.abs().max().item():.3f}, max_abs_err {err:.3e} (tol {LOGITS_TOL}){moe}; "
+        f"launches={counts} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{label}: token-by-token decoding disagrees with the forward")
+    for name in ("decode_attention", "flash_attention"):
+        if counts[name] <= 0:
+            raise SystemExit(f"{label} decode ≡ forward: no {name} kernel was launched")
+    with torch.no_grad():
+        _hold_path_calls(calls, f"{label} decode ≡ forward")
+    return counts
+
+
+def _nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
+def phase_decode_step_time(model, params, label: str) -> None:
+    """The decode step at B 1 and 8 with a full 256-slot float32 cache: its
+    time as a caller sees it (host clock to a synchronise) and the host's
+    share of it (the enqueue), the same step replayed as a CUDA graph (the
+    device's time alone), its launches and a profile, beside two bounds:
+    every parameter byte read once at the HBM rate, and the bytes a step
+    must move (every weight but the embedding table, of which it gathers B
+    rows; the cache; the logits written)."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    cfg = model.cfg
+    param_bytes = _nbytes(params)
+    weight_ms = param_bytes / HBM_BYTES_PER_S * 1e3
+    table = params["embed"]["table"]
+    for b in (1, 8):
+        cache = model.init_cache(b, 256, dtype=torch.float32)
+        tokens = torch.ones((b, 1), dtype=torch.long, device=model.device)
+        step_bytes = (param_bytes - (0 if cfg.tie_embeddings else _nbytes(table))
+                      + b * cfg.d_model * 4 + _nbytes(cache) + b * cfg.vocab_size * 4)
+        step_ms_bound = step_bytes / HBM_BYTES_PER_S * 1e3
+
+        def step():
+            with torch.no_grad():
+                model.decode_step(params, tokens, cache, 255)  # every slot valid
+
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        times, enqueue = [], []
+        for _ in range(15):
             t0 = time.perf_counter()
-            fn()
+            step()
+            t1 = time.perf_counter()
             torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        events = [e for e in prof.key_averages()
-                  if e.device_time_total > 0 and e.device_type.name == "CUDA"]
-        rows = [(e.key, e.device_time_total / 1e3) for e in events]
-        busy = sum(t for _, t in rows)
-        top = sorted(rows, key=lambda r: -r[1])[:8]
-        share = ", ".join(f"{k[:48]} {t:.4f} ms" for k, t in top)
-        if busy == 0:
-            log(f"{label} where the time goes: {name}: the profiler recorded no device time; "
-                f"wall {wall_ms:.4f} ms")
-        else:
-            log(f"{label} where the time goes: {name}: wall {wall_ms:.4f} ms, device busy {busy:.4f} ms "
-                f"(idle share {max(0.0, 1 - busy / wall_ms):.3f}); top: {share}")
-        gating = [e for e in events if "moe_gating_kernel" in e.key]
-        if gating:
-            log(f"{label} where the time goes: {name}: moe_gating kernel's own device time "
-                f"{sum(e.device_time_total for e in gating) / 1e3:.6f} ms over "
-                f"{sum(e.count for e in gating)} launches")
+            times.append((time.perf_counter() - t0) * 1e3)
+            enqueue.append((t1 - t0) * 1e3)
+        times.sort()
+        enqueue.sort()
+        med = times[len(times) // 2]
+        device_ms = time_ms(step, reps=3, graphs=3)  # the same step replayed as a CUDA graph
+        ops.reset_launch_counts()
+        step()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        log(f"{label} decode step B {b}, cache 256 float32: median {med:.4f} ms (min {times[0]:.4f}, "
+            f"max {times[-1]:.4f}, 15 steps), of which the host's enqueue median "
+            f"{enqueue[len(enqueue) // 2]:.4f} ms; as a CUDA graph {device_ms:.4f} ms; weight-read bound "
+            f"{weight_ms:.4f} ms ({param_bytes} parameter bytes / 3.35 TB/s), ratio {med / weight_ms:.3f} "
+            f"(graph {device_ms / weight_ms:.3f}); step byte bound {step_ms_bound:.4f} ms ({step_bytes} "
+            f"bytes), ratio {med / step_ms_bound:.3f} (graph {device_ms / step_ms_bound:.3f}); "
+            f"launches per step {counts}")
+        _profile(step, label, f"decode step ({b} rows, cache 256)")
+        del cache
+
+
+def phase_step_card_vs_cpu(cfg, label: str) -> None:
+    """A few decode steps on the card against the same weights on the CPU,
+    with a float32 and a bfloat16 cache (``pos`` a device tensor for the
+    bf16 one): logits to LOGITS_TOL, the float32 cache to F32_TOL, the bf16
+    cache to one bf16 step (rtol 2**-7)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import Model
+
+    card = Model(cfg, device="cuda")
+    params = card.init(torch.Generator(device="cuda").manual_seed(2))
+    cpu, cpu_params = Model(cfg, device="cpu"), _to_cpu(params)
+    log(f"{label}: {cfg.n_layers} layer at full width, vocab {cfg.vocab_size}: "
+        f"{card.param_count(params)} params")
+    rng = np.random.default_rng(2)
+    for dtype in (torch.float32, torch.bfloat16):
+        c_card, c_cpu = card.init_cache(2, 16, dtype=dtype), cpu.init_cache(2, 16, dtype=dtype)
+        err = 0.0
+        with torch.no_grad():
+            for i in range(4):
+                tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(2, 1)))
+                pos = torch.tensor(i, device="cuda") if dtype == torch.bfloat16 else i
+                got, c_card = card.decode_step(params, tok.cuda(), c_card, pos)
+                want, c_cpu = cpu.decode_step(cpu_params, tok, c_cpu, i)
+                if got.shape != (2, 1, cfg.vocab_size) or not bool(torch.isfinite(got).all()):
+                    raise SystemExit(f"{label}: step {i} gave logits {tuple(got.shape)}, not all finite")
+                err = max(err, (got.cpu() - want).abs().max().item())
+        rtol, atol = (2**-7, 1e-4) if dtype == torch.bfloat16 else (0.0, F32_TOL)
+        pairs = [(a["kv"][n].cpu().float(), b["kv"][n].float())
+                 for a, b in zip(c_card, c_cpu) for n in ("k", "v")]
+        cache_err = max((a - b).abs().max().item() for a, b in pairs)
+        cache_ok = all(torch.isclose(a, b, rtol=rtol, atol=atol).all() for a, b in pairs)
+        ok = err <= LOGITS_TOL and cache_ok
+        log(f"{label}: 4 decode steps, {str(dtype)[6:]} cache: logits card vs CPU max_abs_err {err:.3e} "
+            f"(tol {LOGITS_TOL}); cache max_abs_err {cache_err:.3e} (rtol {rtol}, atol {atol}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"{label}: the decode step on the card disagrees with the CPU's")
 
 
 def _attention_entries(gen, b, h, kv, s, hd) -> tuple[dict, dict]:
-    """Times and bounds of both attention kernels at one shape, float32."""
+    """Times and bounds of both attention kernels at one shape, float32; the
+    decode kernel also over a bfloat16 cache (``bf16_cache_*``)."""
     import torch
     import torch.nn.functional as F
 
@@ -625,19 +933,23 @@ def _attention_entries(gen, b, h, kv, s, hd) -> tuple[dict, dict]:
             lambda: F.scaled_dot_product_attention(qd[:, :, None], kr, vr, attn_mask=mask)
         ),
     }
+    kb, vb = k.bfloat16(), v.bfloat16()
+    decode["bf16_cache_ms"] = time_ms(lambda: dec.decode_attention_cuda(qd, kb, vb, vl))
+    decode["bf16_cache_bound_ms"], decode["bf16_cache_bound_by"] = decode_bound(qd, kb, vl)
     log(f"attention ({b},{h}->{kv},{s},{hd}) f32, ratios in this call: "
         f"flash/SDPA {flash['ms'] / flash['library_ms']:.3f}, flash/plain {flash['ms'] / flash['plain_ms']:.3f}, "
         f"flash/tc_bound {flash['ms'] / tc_bound:.3f} (tc_bound {tc_bound:.5f} ms, {tc_by}), "
         f"flash/bound {flash['ms'] / f_bound:.3f}; decode/SDPA {decode['ms'] / decode['library_ms']:.3f}, "
         f"decode/plain {decode['ms'] / decode['plain_ms']:.3f}, decode/bound {decode['ms'] / d_bound:.3f} "
-        f"(bound {d_bound:.6f} ms, {d_by})")
+        f"(bound {d_bound:.6f} ms, {d_by}); bf16 cache {decode['bf16_cache_ms']:.6f} ms, "
+        f"/bound {decode['bf16_cache_ms'] / decode['bf16_cache_bound_ms']:.3f}")
     return flash, decode
 
 
 def phase_kernel_line(counts: dict[str, int], errs: dict[str, float]) -> dict:
     """One entry per kernel.  Flash and decode are timed at orloj_gpt's
-    (8,12,256,64) as before and, under ``arctic``, at Arctic's
-    (8,56->8,256,128); RMSNorm at Arctic's (2048, 7168) and the gating at
+    (8,12,256,64) as before, under ``arctic`` at Arctic's (8,56->8,256,128)
+    and under ``glm4`` at GLM-4's (8,32->2,256,128); RMSNorm at Arctic's (2048, 7168) and the gating at
     its (2048, 128) with k 2, and also at T = 8, 32 and 256 (``by_T``)."""
     import torch
     import torch.nn.functional as F
@@ -649,12 +961,14 @@ def phase_kernel_line(counts: dict[str, int], errs: dict[str, float]) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(1)
     flash, decode = _attention_entries(gen, 8, 12, 12, 256, 64)
     a_flash, a_decode = _attention_entries(gen, 8, 56, 8, 256, 128)
+    g_flash, g_decode = _attention_entries(gen, 8, 32, 2, 256, 128)
     flash = {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:88",
         "launches": counts["flash_attention"], "max_abs_err": errs["flash_attention"], **flash,
         "arctic": {"max_abs_err": errs["arctic_flash_attention"], **a_flash},
+        "glm4": {"max_abs_err": errs["glm4_flash_attention"], **g_flash},
     }
     decode = {
         "name": "decode_attention", "route": "cuda",
@@ -662,6 +976,8 @@ def phase_kernel_line(counts: dict[str, int], errs: dict[str, float]) -> dict:
         "replaces": "src/repro/kernels/decode_attention.py:80",
         "launches": counts["decode_attention"], "max_abs_err": errs["decode_attention"], **decode,
         "arctic": {"max_abs_err": errs["arctic_decode_attention"], **a_decode},
+        "glm4": {"max_abs_err": errs["glm4_decode_attention"],
+                 "bf16_cache_max_abs_err": errs["glm4_bf16_cache_decode_attention"], **g_decode},
     }
 
     x = _randn(gen, (2048, 7168), torch.float32)
@@ -708,7 +1024,10 @@ def phase_kernel_line(counts: dict[str, int], errs: dict[str, float]) -> dict:
         "bound_ms": by_t[-1]["bound_ms"], "bound_by": by_t[-1]["bound_by"],
         "library_ms": None, "composite_ms": time_ms(composite), "by_T": by_t,
     }
-    return {"kernels": [flash, decode, rmsnorm, moe_gating]}
+    entries = [flash, decode, rmsnorm, moe_gating]
+    for e in entries:  # the decode ≡ forward paths' own calls, held against the plain versions
+        e["path_calls_held"], e["path_max_abs_err"] = PATH_HELD.get(e["name"], (0, None))
+    return {"kernels": entries}
 
 
 def _release() -> None:
@@ -732,6 +1051,7 @@ def run_orloj_gpt(ecfg) -> list[dict[str, int]]:
     windows = [phase_serve(engine, ecfg, "serve", ("flash_attention",))]
     phase_card_vs_cpu(engine.model, engine.params, "serve")
     windows.append(phase_tokens(engine, "orloj_gpt"))
+    windows.append(phase_decode_matches_forward(engine.model, engine.params, "orloj_gpt"))
     phase_where_time_goes(engine, "orloj_gpt")
     del engine
     _release()
@@ -752,7 +1072,7 @@ def run_arctic(ecfg) -> list[dict[str, int]]:
     engine = TorchServingEngine(cfg, ecfg, seed=0)
     torch.cuda.synchronize()
     n_params = engine.model.param_count(engine.params)
-    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(engine.params))
+    n_bytes = _nbytes(engine.params)
     log(f"arctic: {cfg.name} cut to {cfg.n_layers} of {CONFIG.n_layers} layers at full width: d {cfg.d_model}, "
         f"{cfg.n_heads} query heads on {cfg.n_kv_heads} KV heads of {cfg.resolved_head_dim}, "
         f"{cfg.n_experts} experts top-{cfg.top_k} (d_ff {cfg.d_ff}) beside a dense {cfg.mlp}, "
@@ -774,9 +1094,40 @@ def run_arctic(ecfg) -> list[dict[str, int]]:
     _release()
 
     windows.append(phase_tokens(engine, "arctic"))
+    windows.append(phase_decode_matches_forward(engine.model, engine.params, "arctic"))
+    if windows[-1]["moe_gating"] <= 0:
+        raise SystemExit("arctic decode ≡ forward: no moe_gating kernel was launched")
     phase_where_time_goes(engine, "arctic")
     log(f"arctic: peak {torch.cuda.max_memory_allocated()} bytes over the whole Arctic phase")
     del engine
+    _release()
+    return windows
+
+
+def run_glm4() -> list[dict[str, int]]:
+    """The models' own decode path at full depth: GLM-4-9B, 40 layers at full
+    width in float32 (37.6 GB of weights, which the card holds whole)."""
+    import torch
+
+    from repro_torch.configs.glm4_9b import CONFIG
+    from repro_torch.models import Model
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(CONFIG, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"glm4: {CONFIG.name} {CONFIG.n_layers} layers at full width: d {CONFIG.d_model}, "
+        f"{CONFIG.n_heads} query heads on {CONFIG.n_kv_heads} KV heads of {CONFIG.resolved_head_dim}, "
+        f"{CONFIG.mlp} d_ff {CONFIG.d_ff}, vocab {CONFIG.vocab_size}; {model.param_count(params)} params, "
+        f"{_nbytes(params)} bytes of float32 weights; peak {torch.cuda.max_memory_allocated()} bytes "
+        f"after init (built in {time.perf_counter() - t0:.1f} s)")
+    windows = [phase_decode_matches_forward(model, params, "glm4")]
+    phase_decode_step_time(model, params, "glm4")
+    log(f"glm4: peak {torch.cuda.max_memory_allocated()} bytes over decode ≡ forward and the timed steps")
+    del model, params
+    _release()
+    phase_step_card_vs_cpu(dataclasses.replace(CONFIG, n_layers=1, vocab_size=512), "glm4 card vs CPU")
     _release()
     return windows
 
@@ -790,6 +1141,13 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+def timed(label: str, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"phase {label}: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -806,15 +1164,16 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t_start = time.perf_counter()
-    line = phase_card()
-    phase_build()
-    errs = phase_kernels_vs_plain()
+    line = timed("card", phase_card)
+    timed("build", phase_build)
+    errs = timed("kernels vs plain", phase_kernels_vs_plain)
 
     ecfg = EngineConfig()
-    windows = run_orloj_gpt(ecfg) + run_arctic(ecfg)
+    windows = (timed("orloj_gpt", run_orloj_gpt, ecfg) + timed("arctic", run_arctic, ecfg)
+               + timed("glm4", run_glm4))
     counts = {name: sum(w[name] for w in windows) for name in _build.KERNELS}
 
-    kernels = phase_kernel_line(counts, errs)
+    kernels = timed("kernel line", phase_kernel_line, counts, errs)
     log(f"done in {time.perf_counter() - t_start:.1f} s")
     log(line)
     log(json.dumps(kernels))

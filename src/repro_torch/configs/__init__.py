@@ -1,9 +1,9 @@
-"""Architecture registry of the port: the serving path's dense model and
-Snowflake Arctic (the MoE path).
+"""Architecture registry of the port: the attention models of the zoo (dense
+and MoE) and the serving path's own model, in the reference's order.
 
 ``get_config(name)`` returns the full published configuration, as
-:func:`repro.configs.get_config` does; the rest of the zoo is ported later
-(ROADMAP A9)."""
+:func:`repro.configs.get_config` does.  The SSM and recurrent models and
+the two with a frontend are ported later (ROADMAP A8, A9)."""
 
 from __future__ import annotations
 
@@ -11,7 +11,15 @@ import importlib
 
 from ..models.config import ModelConfig
 
-ARCHS = ["orloj_gpt", "arctic_480b"]
+ARCHS = [
+    "glm4_9b",
+    "dbrx_132b",
+    "arctic_480b",
+    "olmo_1b",
+    "nemotron_4_340b",
+    "granite_34b",
+    "orloj_gpt",
+]
 
 
 def get_config(name: str) -> ModelConfig:

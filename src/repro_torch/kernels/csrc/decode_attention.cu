@@ -33,6 +33,15 @@
 // written are never read (a block with none only waits for the merge); and
 // the merges read shared memory, not device memory.  The ragged tail of S
 // is masked in the kernel, so any cache length is served.
+//
+// Storage types: q and the output share one type, the caches may have
+// another.  The models' decode step attends float32 queries over a
+// bfloat16 cache (the reference's default cache type, read back to
+// float32); that instantiation stages the bf16 tiles as they are, half the
+// bytes of a float32 cache, and computes in float32 like every other.  A
+// logit softcap (tanh(s / cap) · cap on the scaled scores, before the mask)
+// is a template flag, so that the instantiations without it are the code
+// they were.
 
 #include <cooperative_groups.h>
 
@@ -107,14 +116,14 @@ constexpr size_t shared_bytes(int slots) {
 // tile against heads w·kHeadsPerWarp<G> ... (one lane per key) and folds it
 // into its online state (m, l, acc).  Block r of the cluster walks steps
 // r, r + gridDim.x, ... of `slots` tiles each.
-template <typename T, int HD, int G>
+template <typename TQ, typename T, int HD, int G, bool SOFTCAP>
 __global__ void __launch_bounds__(32 * kMaxWarps)
-    decode_attention_kernel(const T* __restrict__ q,        // (B, H, HD)
+    decode_attention_kernel(const TQ* __restrict__ q,       // (B, H, HD)
                             const T* __restrict__ k_cache,  // (B, KV, S, HD)
                             const T* __restrict__ v_cache,  // (B, KV, S, HD)
                             const int* __restrict__ valid_len,  // (B,)
-                            T* __restrict__ out,            // (B, H, HD)
-                            int H, int KV, int S, float sm_scale) {
+                            TQ* __restrict__ out,           // (B, H, HD)
+                            int H, int KV, int S, float sm_scale, float softcap) {
   namespace cg = cooperative_groups;
   constexpr int GW = kHeadsPerWarp<G>;
   constexpr int DPL = HD / 32;  // output dims each lane owns: lane*DPL ...
@@ -198,7 +207,9 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
       float p[GW];
 #pragma unroll
       for (int j = 0; j < GW; ++j) {
-        const float sj = lane < nt ? s[j] * sm_scale : kNegInf;
+        float sj = s[j] * sm_scale;
+        if constexpr (SOFTCAP) sj = tanhf(sj / softcap) * softcap;
+        sj = lane < nt ? sj : kNegInf;
         const float m_new = fmaxf(m[j], warp_max(sj));
         p[j] = lane < nt ? expf(sj - m_new) : 0.f;
         const float alpha = expf(m[j] - m_new);
@@ -244,7 +255,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
           const float inv = 1.f / fmaxf(l[j], 1e-30f);
 #pragma unroll
           for (int e = 0; e < DPL; ++e)
-            out[q_base + (h0 + j) * HD + lane * DPL + e] = from_float<T>(acc[j][e] * inv);
+            out[q_base + (h0 + j) * HD + lane * DPL + e] = from_float<TQ>(acc[j][e] * inv);
         } else {
           if (lane == 0) {
             m_s[h0 + j] = m[j];
@@ -280,7 +291,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
           mx = m_new;
         }
         if (blocks == 1) {
-          out[q_base + i] = from_float<T>(num / fmaxf(den, 1e-30f));
+          out[q_base + i] = from_float<TQ>(num / fmaxf(den, 1e-30f));
         } else {
           acc_s[j][d] = num;
           if (d == 0) {
@@ -309,7 +320,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
         den = a * den + f * lr;
         mx = m_new;
       }
-      out[q_base + i] = from_float<T>(num / fmaxf(den, 1e-30f));
+      out[q_base + i] = from_float<TQ>(num / fmaxf(den, 1e-30f));
     }
     cluster.sync();  // no block reuses or releases its state while it is read
   }
@@ -326,34 +337,45 @@ inline int sm_count() {
   return count;
 }
 
-template <typename T, int HD, int G>
-cudaError_t launch_g(const T* q, const T* k, const T* v, const int* valid_len, T* out, int B,
-                     int H, int KV, int S, cudaStream_t stream) {
+// What a launch takes, whatever the instantiation.
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  const int* valid_len;
+  void* out;
+  int B, H, KV, S;
+  float softcap;
+  cudaStream_t stream;
+};
+
+template <typename TQ, typename T, int HD, int G, bool SOFTCAP>
+cudaError_t launch_g(const Args& a) {
   // A small group (1 or 2 heads, little work a tile) takes as many tile
   // slots as 8 warps and kMaxStageBytes hold, so that one step covers a
   // short cache and one block a (row, KV head); a group of 4 or more heads
   // fills 4 warps a tile and keeps one slot.  Then as many blocks a cluster
   // as it takes for B·KV clusters to cover the SMs four times, at most 8
   // and at most one a step.
-  const int tiles = (S + kTile - 1) / kTile;
+  const auto kernel = decode_attention_kernel<TQ, T, HD, G, SOFTCAP>;
+  const int tiles = (a.S + kTile - 1) / kTile;
   const int slot_bytes = static_cast<int>(2 * kTile * kRowLen<T, HD> * sizeof(T));
   const int max_slots = kHeadWarps<G> >= 4 ? 1 : kMaxWarps / kHeadWarps<G>;
   const int slots =
       std::min({max_slots, tiles, static_cast<int>(kMaxStageBytes) / slot_bytes});
   const int steps = (tiles + slots - 1) / slots;
-  const int want = (4 * sm_count() + B * KV - 1) / (B * KV);
+  const int want = (4 * sm_count() + a.B * a.KV - 1) / (a.B * a.KV);
   const int blocks = std::max(1, std::min({kMaxCluster, steps, want}));
   const size_t smem = shared_bytes<T, HD, G>(slots);
-  const cudaError_t err = cudaFuncSetAttribute(decode_attention_kernel<T, HD, G>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(blocks), static_cast<unsigned>(KV),
-                     static_cast<unsigned>(B));
+  cfg.gridDim = dim3(static_cast<unsigned>(blocks), static_cast<unsigned>(a.KV),
+                     static_cast<unsigned>(a.B));
   cfg.blockDim = dim3(static_cast<unsigned>(32 * kHeadWarps<G> * slots));
   cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
+  cfg.stream = a.stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = static_cast<unsigned>(blocks);
@@ -362,55 +384,62 @@ cudaError_t launch_g(const T* q, const T* k, const T* v, const int* valid_len, T
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const float scale = 1.f / std::sqrt(static_cast<float>(HD));
-  return cudaLaunchKernelEx(&cfg, decode_attention_kernel<T, HD, G>, q, k, v, valid_len, out, H,
-                            KV, S, scale);
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<const TQ*>(a.q), static_cast<const T*>(a.k),
+                            static_cast<const T*>(a.v), a.valid_len, static_cast<TQ*>(a.out), a.H,
+                            a.KV, a.S, scale, a.softcap);
 }
 
-template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, const int* valid_len, void* out,
-                   int B, int H, int KV, int S, cudaStream_t stream) {
-  const int g = H / KV;
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  T* ot = static_cast<T*>(out);
-  if (g > 4) return launch_g<T, HD, 8>(qt, kt, vt, valid_len, ot, B, H, KV, S, stream);
-  if (g > 2) return launch_g<T, HD, 4>(qt, kt, vt, valid_len, ot, B, H, KV, S, stream);
-  if (g == 2) return launch_g<T, HD, 2>(qt, kt, vt, valid_len, ot, B, H, KV, S, stream);
-  return launch_g<T, HD, 1>(qt, kt, vt, valid_len, ot, B, H, KV, S, stream);
+template <typename TQ, typename T, int HD, bool SOFTCAP>
+cudaError_t launch(const Args& a) {
+  const int g = a.H / a.KV;
+  if (g > 4) return launch_g<TQ, T, HD, 8, SOFTCAP>(a);
+  if (g > 2) return launch_g<TQ, T, HD, 4, SOFTCAP>(a);
+  if (g == 2) return launch_g<TQ, T, HD, 2, SOFTCAP>(a);
+  return launch_g<TQ, T, HD, 1, SOFTCAP>(a);
 }
 
-template <typename T>
-cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v, const int* valid_len,
-                        void* out, int B, int H, int KV, int S, cudaStream_t stream) {
+template <typename TQ, typename T, bool SOFTCAP>
+cudaError_t dispatch_hd(int hd, const Args& a) {
   switch (hd) {
     case 32:
-      return launch<T, 32>(q, k, v, valid_len, out, B, H, KV, S, stream);
+      return launch<TQ, T, 32, SOFTCAP>(a);
     case 64:
-      return launch<T, 64>(q, k, v, valid_len, out, B, H, KV, S, stream);
+      return launch<TQ, T, 64, SOFTCAP>(a);
     case 128:
-      return launch<T, 128>(q, k, v, valid_len, out, B, H, KV, S, stream);
+      return launch<TQ, T, 128, SOFTCAP>(a);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
+template <typename TQ, typename T>
+cudaError_t dispatch_softcap(int hd, const Args& a) {
+  return a.softcap > 0.f ? dispatch_hd<TQ, T, true>(hd, a) : dispatch_hd<TQ, T, false>(hd, a);
+}
+
 }  // namespace
 }  // namespace repro_torch
 
-// q: (B, H, hd); k_cache, v_cache: (B, KV, S, hd), all contiguous, of the
-// storage type `dtype`; valid_len: (B,) int32; out: (B, H, hd).  hd must be
-// 32, 64 or 128.  Launches one cluster of blocks per (KV head, batch row)
-// on `stream` and returns the launch's error code (0 when it was accepted).
+// q: (B, H, hd) and out: (B, H, hd) of the storage type `q_dtype`;
+// k_cache, v_cache: (B, KV, S, hd) of `cache_dtype`, all contiguous;
+// valid_len: (B,) int32.  The pairs taken: float32 / float32, bfloat16 /
+// bfloat16, and float32 queries over a bfloat16 cache.  hd must be 32, 64
+// or 128; softcap > 0 caps the scaled scores at ±softcap (tanh), 0 leaves
+// them.  Launches one cluster of blocks per (KV head, batch row) on
+// `stream` and returns the launch's error code (0 when it was accepted).
 extern "C" int decode_attention_launch(const void* q, const void* k_cache, const void* v_cache,
-                                       const int* valid_len, void* out, int dtype, int B, int H,
-                                       int KV, int S, int hd, void* stream) {
+                                       const int* valid_len, void* out, int q_dtype,
+                                       int cache_dtype, int B, int H, int KV, int S, int hd,
+                                       float softcap, void* stream) {
   using namespace repro_torch;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || KV <= 0 || H % KV != 0 || S <= 0) return cudaErrorInvalidValue;
-  if (dtype == kFloat32)
-    return dispatch_hd<float>(hd, q, k_cache, v_cache, valid_len, out, B, H, KV, S, s);
-  if (dtype == kBFloat16)
-    return dispatch_hd<__nv_bfloat16>(hd, q, k_cache, v_cache, valid_len, out, B, H, KV, S, s);
+  if (B <= 0 || KV <= 0 || H % KV != 0 || S <= 0 || !(softcap >= 0.f))
+    return cudaErrorInvalidValue;
+  const Args a{q, k_cache, v_cache, valid_len, out, B, H, KV, S, softcap,
+               static_cast<cudaStream_t>(stream)};
+  if (q_dtype == kFloat32 && cache_dtype == kFloat32) return dispatch_softcap<float, float>(hd, a);
+  if (q_dtype == kBFloat16 && cache_dtype == kBFloat16)
+    return dispatch_softcap<__nv_bfloat16, __nv_bfloat16>(hd, a);
+  if (q_dtype == kFloat32 && cache_dtype == kBFloat16)
+    return dispatch_softcap<float, __nv_bfloat16>(hd, a);
   return cudaErrorInvalidValue;
 }

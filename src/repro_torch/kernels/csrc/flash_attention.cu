@@ -48,6 +48,10 @@
 // query tile first.  Left for later: packing a GQA group's query heads into
 // one block's rows (each K/V tile is read once per query head, from L2),
 // wgmma with TMA, and a persistent schedule.
+//
+// A logit softcap (tanh(s / cap) · cap on the scaled scores, before the
+// masks) is a template flag, so that the instantiations without it are the
+// code they were.
 
 #include <cmath>
 #include <cstddef>
@@ -182,7 +186,7 @@ __device__ __forceinline__ void load_rows(T* dst, int ld, const T* src, long lon
   }
 }
 
-template <typename T, int HD, int WARPS, int BK>
+template <typename T, int HD, int WARPS, int BK, bool SOFTCAP>
 __global__ void __launch_bounds__(32 * WARPS)
     flash_attention_kernel(const T* __restrict__ q,  // (B, H, S, HD)
                            const T* __restrict__ k,  // (B, KV, S, HD)
@@ -190,7 +194,7 @@ __global__ void __launch_bounds__(32 * WARPS)
                            const int* __restrict__ lengths,  // (B,) or null: all S
                            T* __restrict__ out,              // (B, H, S, HD), contiguous
                            int H, int KV, int S, Strides sq, Strides sk, Strides sv, int causal,
-                           int window, float sm_scale) {
+                           int window, float sm_scale, float softcap) {
   using L = Tile<T, HD, BK>;
   constexpr int BQ = 16 * WARPS;
   constexpr int NT = L::kNT;
@@ -241,7 +245,15 @@ __global__ void __launch_bounds__(32 * WARPS)
   float m[2] = {kNegInf, kNegInf};
   float l[2] = {0.f, 0.f};  // this lane's share of the row sums
   // Scores in log2 units: exp2 of the scaled difference is exp of the score's.
-  const float scale2 = sm_scale * 1.4426950408889634f;
+  constexpr float kLog2e = 1.4426950408889634f;
+  const float scale2 = sm_scale * kLog2e;
+  const auto to_log2 = [&](float x) {
+    if constexpr (SOFTCAP) {
+      return tanhf(x * sm_scale / softcap) * (softcap * kLog2e);
+    } else {
+      return x * scale2;
+    }
+  };
   const T* qw = q_s + warp * 16 * L::kQS;
 
   for (int it = 0; it < n_tiles; ++it) {
@@ -329,7 +341,7 @@ __global__ void __launch_bounds__(32 * WARPS)
             bool ok = n < nt_lim && kpos < k_end;
             if (causal) ok = ok && kpos <= qpos[r];
             if (window > 0) ok = ok && kpos > qpos[r] - window;
-            s[n][e] = ok ? s[n][e] * scale2 : kNegInf;
+            s[n][e] = ok ? to_log2(s[n][e]) : kNegInf;
             mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
           }
         }
@@ -338,7 +350,7 @@ __global__ void __launch_bounds__(32 * WARPS)
         for (int n = 0; n < NT; ++n) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            s[n][e] *= scale2;
+            s[n][e] = to_log2(s[n][e]);
             mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
           }
         }
@@ -443,56 +455,63 @@ __global__ void __launch_bounds__(32 * WARPS)
   }
 }
 
-template <typename T, int HD, int WARPS, int BK>
-cudaError_t launch(const void* q, const void* k, const void* v, const int* lengths, void* out,
-                   int B, int H, int KV, int S, Strides sq, Strides sk, Strides sv, int causal,
-                   int window, cudaStream_t stream) {
+// What a launch takes, whatever the instantiation.
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  const int* lengths;
+  void* out;
+  int B, H, KV, S;
+  Strides sq, sk, sv;
+  int causal, window;
+  float softcap;
+  cudaStream_t stream;
+};
+
+template <typename T, int HD, int WARPS, int BK, bool SOFTCAP>
+cudaError_t launch(const Args& a) {
   const size_t smem = Tile<T, HD, BK>::shared_bytes(WARPS);
-  cudaError_t err = allow_shared_bytes(flash_attention_kernel<T, HD, WARPS, BK>, smem);
+  cudaError_t err = allow_shared_bytes(flash_attention_kernel<T, HD, WARPS, BK, SOFTCAP>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(H, B, (S + 16 * WARPS - 1) / (16 * WARPS));
-  flash_attention_kernel<T, HD, WARPS, BK><<<grid, 32 * WARPS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), lengths,
-      static_cast<T*>(out), H, KV, S, sq, sk, sv, causal, window,
-      1.f / std::sqrt(static_cast<float>(HD)));
+  const dim3 grid(a.H, a.B, (a.S + 16 * WARPS - 1) / (16 * WARPS));
+  flash_attention_kernel<T, HD, WARPS, BK, SOFTCAP><<<grid, 32 * WARPS, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      a.lengths, static_cast<T*>(a.out), a.H, a.KV, a.S, a.sq, a.sk, a.sv, a.causal, a.window,
+      1.f / std::sqrt(static_cast<float>(HD)), a.softcap);
   return cudaGetLastError();
 }
 
 template <int HD>
 constexpr int kLargeBlockK = HD == 128 ? 16 : 64;
 
-template <typename T, int HD>
-cudaError_t dispatch_tile(const void* q, const void* k, const void* v, const int* lengths,
-                          void* out, int B, int H, int KV, int S, Strides sq, Strides sk,
-                          Strides sv, int causal, int window, cudaStream_t stream) {
+template <typename T, int HD, bool SOFTCAP>
+cudaError_t dispatch_tile(const Args& a) {
   // 32 query rows and 32 keys a tile for the smallest bucket, where 64
   // would leave half of every tile idle; otherwise 64 query rows, and keys
   // by the head dimension: 16 at hd 128, so that three blocks' shared
   // memory (69 KB each in float32) fits a SM, 64 below.
-  if (S <= 32)
-    return launch<T, HD, 2, 32>(q, k, v, lengths, out, B, H, KV, S, sq, sk, sv, causal, window,
-                                stream);
-  return launch<T, HD, 4, kLargeBlockK<HD>>(q, k, v, lengths, out, B, H, KV, S, sq, sk, sv, causal,
-                                            window, stream);
+  if (a.S <= 32) return launch<T, HD, 2, 32, SOFTCAP>(a);
+  return launch<T, HD, 4, kLargeBlockK<HD>, SOFTCAP>(a);
 }
 
-template <typename T>
-cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v, const int* lengths,
-                        void* out, int B, int H, int KV, int S, Strides sq, Strides sk,
-                        Strides sv, int causal, int window, cudaStream_t stream) {
+template <typename T, bool SOFTCAP>
+cudaError_t dispatch_hd(int hd, const Args& a) {
   switch (hd) {
     case 32:
-      return dispatch_tile<T, 32>(q, k, v, lengths, out, B, H, KV, S, sq, sk, sv, causal, window,
-                                  stream);
+      return dispatch_tile<T, 32, SOFTCAP>(a);
     case 64:
-      return dispatch_tile<T, 64>(q, k, v, lengths, out, B, H, KV, S, sq, sk, sv, causal, window,
-                                  stream);
+      return dispatch_tile<T, 64, SOFTCAP>(a);
     case 128:
-      return dispatch_tile<T, 128>(q, k, v, lengths, out, B, H, KV, S, sq, sk, sv, causal, window,
-                                   stream);
+      return dispatch_tile<T, 128, SOFTCAP>(a);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+template <typename T>
+cudaError_t dispatch_softcap(int hd, const Args& a) {
+  return a.softcap > 0.f ? dispatch_hd<T, true>(hd, a) : dispatch_hd<T, false>(hd, a);
 }
 
 }  // namespace
@@ -502,23 +521,22 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v, con
 // the head dimension contiguous and the other strides given in elements;
 // every row must start on a 16-byte boundary (cp.async); lengths: (B,)
 // int32 or null (every row has S keys); out: (B, H, S, hd), contiguous.
-// hd must be 32, 64 or 128.  Launches on `stream` and returns
+// hd must be 32, 64 or 128; softcap > 0 caps the scaled scores at
+// ±softcap (tanh), 0 leaves them.  Launches on `stream` and returns
 // cudaGetLastError() (0 when the launch was accepted).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
                                       const int* lengths, void* out, int dtype, int B, int H,
                                       int KV, int S, int hd, long long sqb, long long sqh,
                                       long long sqs, long long skb, long long skh,
                                       long long sks, long long svb, long long svh,
-                                      long long svs, int causal, int window, void* stream) {
+                                      long long svs, int causal, int window, float softcap,
+                                      void* stream) {
   using namespace repro_torch;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || KV <= 0 || H % KV != 0 || S <= 0) return cudaErrorInvalidValue;
-  const Strides sq{sqb, sqh, sqs}, sk{skb, skh, sks}, sv{svb, svh, svs};
-  if (dtype == kFloat32)
-    return dispatch_hd<float>(hd, q, k, v, lengths, out, B, H, KV, S, sq, sk, sv, causal, window,
-                              st);
-  if (dtype == kBFloat16)
-    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, lengths, out, B, H, KV, S, sq, sk, sv, causal,
-                                      window, st);
+  if (B <= 0 || KV <= 0 || H % KV != 0 || S <= 0 || !(softcap >= 0.f))
+    return cudaErrorInvalidValue;
+  const Args a{q, k, v, lengths, out, B, H, KV, S, Strides{sqb, sqh, sqs}, Strides{skb, skh, sks},
+               Strides{svb, svh, svs}, causal, window, softcap, static_cast<cudaStream_t>(stream)};
+  if (dtype == kFloat32) return dispatch_softcap<float>(hd, a);
+  if (dtype == kBFloat16) return dispatch_softcap<__nv_bfloat16>(hd, a);
   return cudaErrorInvalidValue;
 }

@@ -18,6 +18,10 @@ from . import _build
 
 HEAD_DIMS = (32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# (query, cache) storage types the kernel takes: one type for both, or
+# float32 queries over a bfloat16 cache (the models' decode step).
+PAIRS = ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+         (torch.float32, torch.bfloat16))
 
 launches = 0  # kernel launches since the last reset (ops.reset_launch_counts)
 
@@ -25,12 +29,12 @@ launches = 0  # kernel launches since the last reset (ops.reset_launch_counts)
 @functools.cache
 def _entry():
     fn = _build.load("decode_attention").decode_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def check_inputs(q, k_cache, v_cache, valid_len) -> None:
+def check_inputs(q, k_cache, v_cache, valid_len, softcap: float = 0.0) -> None:
     """Raise on input the kernel does not take (any device)."""
     if q.dim() != 3 or k_cache.dim() != 4:
         raise ValueError("q must be (B, H, hd) and the caches (B, KV, S, hd)")
@@ -44,9 +48,9 @@ def check_inputs(q, k_cache, v_cache, valid_len) -> None:
         raise ValueError(f"bad shape: H={h}, KV={kv}, S={s}")
     if hd not in HEAD_DIMS:
         raise ValueError(f"head_dim {hd} not supported by the kernel; it takes {HEAD_DIMS}")
-    if q.dtype not in DTYPES or k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
+    if v_cache.dtype != k_cache.dtype or (q.dtype, k_cache.dtype) not in PAIRS:
         raise TypeError(
-            f"q and the caches must share one of {list(DTYPES)}; got "
+            f"(q, cache) types must be one of {PAIRS}; got "
             f"{q.dtype}, {k_cache.dtype}, {v_cache.dtype}"
         )
     if not (q.is_contiguous() and k_cache.is_contiguous() and v_cache.is_contiguous()):
@@ -55,6 +59,8 @@ def check_inputs(q, k_cache, v_cache, valid_len) -> None:
         raise ValueError("q and the caches must start on a 16-byte boundary (vector loads)")
     if valid_len.shape != (b,) or valid_len.dtype != torch.int32 or not valid_len.is_contiguous():
         raise ValueError("valid_len must be a contiguous (B,) int32 tensor")
+    if not softcap >= 0:
+        raise ValueError(f"softcap must be >= 0 (0: none), got {softcap}")
 
 
 def decode_attention_cuda(
@@ -62,12 +68,16 @@ def decode_attention_cuda(
     k_cache: torch.Tensor,
     v_cache: torch.Tensor,
     valid_len: torch.Tensor,
+    *,
+    softcap: float = 0.0,
 ) -> torch.Tensor:
     """q: (B, H, hd); caches (B, KV, S, hd); valid_len (B,) int32, all on one
     CUDA device → (B, H, hd) in q's dtype.  Rows with ``valid_len == 0``
-    come out as zeros."""
+    come out as zeros.  A bfloat16 cache under float32 queries is read as
+    it is stored and computed on in float32.  ``softcap > 0`` caps the
+    scaled scores (tanh(s / cap) · cap) before the mask."""
     global launches
-    check_inputs(q, k_cache, v_cache, valid_len)
+    check_inputs(q, k_cache, v_cache, valid_len, softcap)
     devices = {t.device for t in (q, k_cache, v_cache, valid_len)}
     if len(devices) != 1 or q.device.type != "cuda":
         raise ValueError(f"all inputs must lie on one CUDA device; got {devices}")
@@ -79,7 +89,8 @@ def decode_attention_cuda(
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), valid_len.data_ptr(),
-            out.data_ptr(), DTYPES[q.dtype], b, h, kv, s, hd, stream,
+            out.data_ptr(), DTYPES[q.dtype], DTYPES[k_cache.dtype], b, h, kv, s, hd,
+            float(softcap), stream,
         )
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: cudaError {err}")

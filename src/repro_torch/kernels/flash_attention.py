@@ -29,12 +29,12 @@ _c_ptr = ctypes.c_void_p
 @functools.cache
 def _entry():
     fn = _build.load("flash_attention").flash_attention_launch
-    fn.argtypes = [_c_ptr] * 5 + [_c_int] * 6 + [_c_ll] * 9 + [_c_int, _c_int, _c_ptr]
+    fn.argtypes = [_c_ptr] * 5 + [_c_int] * 6 + [_c_ll] * 9 + [_c_int, _c_int, ctypes.c_float, _c_ptr]
     fn.restype = _c_int
     return fn
 
 
-def check_inputs(q, k, v, lengths) -> None:
+def check_inputs(q, k, v, lengths, softcap: float = 0.0) -> None:
     """Raise on input the kernel does not take (any device)."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be (B, H, S, hd) and (B, KV, S, hd)")
@@ -59,6 +59,8 @@ def check_inputs(q, k, v, lengths) -> None:
     if lengths is not None:
         if lengths.shape != (b,) or lengths.dtype != torch.int32 or not lengths.is_contiguous():
             raise ValueError("lengths must be a contiguous (B,) int32 tensor")
+    if not softcap >= 0:
+        raise ValueError(f"softcap must be >= 0 (0: none), got {softcap}")
 
 
 def flash_attention_cuda(
@@ -69,11 +71,13 @@ def flash_attention_cuda(
     *,
     causal: bool = True,
     window: int = 0,
+    softcap: float = 0.0,
 ) -> torch.Tensor:
     """q: (B, H, S, hd); k, v: (B, KV, S, hd) on one CUDA device → (B, H, S, hd)
-    in q's dtype.  Keys at or past ``lengths[b]`` are masked (``None``: all S)."""
+    in q's dtype.  Keys at or past ``lengths[b]`` are masked (``None``: all S);
+    ``softcap > 0`` caps the scaled scores (tanh(s / cap) · cap) before the masks."""
     global launches
-    check_inputs(q, k, v, lengths)
+    check_inputs(q, k, v, lengths, softcap)
     devices = {t.device for t in (q, k, v)} | ({lengths.device} if lengths is not None else set())
     if len(devices) != 1 or q.device.type != "cuda":
         raise ValueError(f"all inputs must lie on one CUDA device; got {devices}")
@@ -88,7 +92,7 @@ def flash_attention_cuda(
             out.data_ptr(),
             DTYPES[q.dtype], b, h, k.shape[1], s, hd,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            int(causal), int(window), stream,
+            int(causal), int(window), float(softcap), stream,
         )
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")

@@ -38,12 +38,17 @@ def flash_attention(
     *,
     causal: bool = True,
     window: int = 0,
+    softcap: float = 0.0,
 ) -> torch.Tensor:
     """q: (B, H, S, hd); k, v: (B, KV, S, hd); lengths: (B,) int32 or None
-    (every row has S keys)."""
+    (every row has S keys); ``softcap > 0`` caps the scaled scores."""
     if _route(q) == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal=causal, lengths=lengths, window=window)
-    return _flash.flash_attention_cuda(q, k, v, lengths, causal=causal, window=window)
+        return ref.flash_attention_ref(
+            q, k, v, causal=causal, lengths=lengths, window=window, softcap=softcap
+        )
+    return _flash.flash_attention_cuda(
+        q, k, v, lengths, causal=causal, window=window, softcap=softcap
+    )
 
 
 def decode_attention(
@@ -51,11 +56,15 @@ def decode_attention(
     k_cache: torch.Tensor,
     v_cache: torch.Tensor,
     valid_len: torch.Tensor,
+    *,
+    softcap: float = 0.0,
 ) -> torch.Tensor:
-    """q: (B, H, hd); caches: (B, KV, S, hd); valid_len: (B,) int32."""
+    """q: (B, H, hd); caches: (B, KV, S, hd) of q's type, or bfloat16 under
+    float32 queries; valid_len: (B,) int32; ``softcap > 0`` caps the scaled
+    scores."""
     if _route(q) == "cpu":
-        return ref.decode_attention_ref(q, k_cache, v_cache, valid_len)
-    return _decode.decode_attention_cuda(q, k_cache, v_cache, valid_len)
+        return ref.decode_attention_ref(q, k_cache, v_cache, valid_len, softcap=softcap)
+    return _decode.decode_attention_cuda(q, k_cache, v_cache, valid_len, softcap=softcap)
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:

@@ -2,7 +2,9 @@
 
 The attention versions mask as :mod:`repro.kernels.ref` does: masked
 scores are filled with -1e30, the softmax runs in float32, and a row with
-no valid key gives 0 (not NaN, not a uniform average)."""
+no valid key gives 0 (not NaN, not a uniform average).  A softcap, where
+given, is applied to the scaled scores before the mask, as
+``repro.models.layers`` applies it: tanh(s / cap) · cap."""
 
 from __future__ import annotations
 
@@ -21,12 +23,13 @@ def flash_attention_ref(
     causal: bool = True,
     lengths: torch.Tensor | None = None,
     window: int = 0,
+    softcap: float = 0.0,
 ) -> torch.Tensor:
     """q: (B, H, S, hd); k, v: (B, KV, S, hd) → (B, H, S, hd)."""
     b, h, s, hd = q.shape
     kv = k.shape[1]
     qg = q.reshape(b, kv, h // kv, s, hd)
-    scores = torch.einsum("bkgsd,bktd->bkgst", qg, k).float() / math.sqrt(hd)
+    scores = _cap(torch.einsum("bkgsd,bktd->bkgst", qg, k).float() / math.sqrt(hd), softcap)
     i = torch.arange(s, device=q.device)[:, None]
     j = torch.arange(s, device=q.device)[None, :]
     mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
@@ -51,12 +54,18 @@ def decode_attention_ref(
     k_cache: torch.Tensor,
     v_cache: torch.Tensor,
     valid_len: torch.Tensor,
+    *,
+    softcap: float = 0.0,
 ) -> torch.Tensor:
-    """q: (B, H, hd); k/v_cache: (B, KV, S, hd); valid_len: (B,) → (B, H, hd)."""
+    """q: (B, H, hd); k/v_cache: (B, KV, S, hd); valid_len: (B,) → (B, H, hd)
+    in q's dtype.  A cache of another type than q (bfloat16 under float32
+    queries) is read back to q's type, as the reference model reads its
+    bf16 cache."""
     b, h, hd = q.shape
     kv, s = k_cache.shape[1], k_cache.shape[2]
+    k_cache, v_cache = k_cache.to(q.dtype), v_cache.to(q.dtype)
     qg = q.reshape(b, kv, h // kv, hd)
-    scores = torch.einsum("bkgd,bktd->bkgt", qg, k_cache).float() / math.sqrt(hd)
+    scores = _cap(torch.einsum("bkgd,bktd->bkgt", qg, k_cache).float() / math.sqrt(hd), softcap)
     valid = torch.arange(s, device=q.device)[None] < valid_len.to(q.device)[:, None]
     valid = valid[:, None, None]  # (B, 1, 1, S)
     scores = torch.where(valid, scores, NEG_INF)
@@ -65,6 +74,10 @@ def decode_attention_ref(
     probs = torch.where(valid, probs, 0.0).to(q.dtype)
     out = torch.einsum("bkgt,bktd->bkgd", probs, v_cache)
     return out.reshape(b, h, hd)
+
+
+def _cap(scores: torch.Tensor, softcap: float) -> torch.Tensor:
+    return torch.tanh(scores / softcap) * softcap if softcap > 0 else scores
 
 
 def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -1,5 +1,7 @@
 """Decoder blocks of the port: the attention block with a dense MLP, an MoE
-layer, or both (Arctic's dense residual beside the MoE).
+layer, or both (Arctic's dense residual beside the MoE), for the full
+sequence (``block_apply``) and for one decode step over a KV cache
+(``init_block_cache``, ``block_decode``).
 
 The Hymba and xLSTM blocks of :mod:`repro.models.blocks` are not ported
 yet (ROADMAP A8) and raise."""
@@ -12,7 +14,17 @@ import torch
 
 from . import moe as moe_lib
 from .config import ModelConfig
-from .layers import attention_apply, init_attention, init_mlp, init_norm, mlp_apply, norm_apply
+from .layers import (
+    DecodeSlot,
+    attention_apply,
+    attention_decode,
+    init_attention,
+    init_kv_cache,
+    init_mlp,
+    init_norm,
+    mlp_apply,
+    norm_apply,
+)
 
 Params = dict[str, Any]
 
@@ -45,7 +57,6 @@ def block_apply(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward.  Returns (x, aux_loss); aux is 0 without MoE."""
     check_supported(cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = norm_apply(params["norm1"], x, cfg.norm)
     x = x + attention_apply(
         params["attn"],
@@ -56,6 +67,17 @@ def block_apply(
         softcap=cfg.logit_softcap,
         repeat_kv=cfg.gqa_repeat_kv,
     )
+    x, aux = _ffn(params, x, cfg)
+    return x, aux if aux is not None else torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _ffn(
+    params: Params, x: torch.Tensor, cfg: ModelConfig
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The block's second half: the MoE (with Arctic's dense residual) or
+    the dense MLP on the normed residual.  Returns (x, the MoE's aux_loss
+    or None)."""
+    aux = None
     if cfg.is_moe:
         h2 = norm_apply(params["norm2"], x, cfg.norm)
         y, aux = moe_lib.moe_apply(
@@ -68,3 +90,48 @@ def block_apply(
         h2 = norm_apply(params["norm2"], x, cfg.norm)
         x = x + mlp_apply(params["mlp"], h2, cfg.mlp)
     return x, aux
+
+
+# ----------------------------------------------------------------- cache
+def init_block_cache(
+    cfg: ModelConfig,
+    layer_idx: int,
+    batch: int,
+    cache_len: int,
+    dtype: torch.dtype = torch.bfloat16,
+    device: str | torch.device = "cuda",
+) -> Params:
+    """The layer's KV cache, on the card unless the caller asks for the
+    CPU; with a sliding window, a ring of min(cache_len, window) slots."""
+    check_supported(cfg)
+    eff_len = min(cache_len, cfg.sliding_window) if cfg.sliding_window else cache_len
+    return {
+        "kv": init_kv_cache(batch, cfg.n_kv_heads, eff_len, cfg.resolved_head_dim, dtype, device)
+    }
+
+
+def block_decode(
+    params: Params,
+    x: torch.Tensor,
+    cache: Params,
+    pos: int | torch.Tensor | DecodeSlot,
+    cfg: ModelConfig,
+    layer_idx: int,
+) -> tuple[torch.Tensor, Params]:
+    """One-token decode step, x: (B, 1, d); ``pos`` as in
+    :func:`.layers.attention_decode`.  The cache is updated in place and
+    returned."""
+    check_supported(cfg)
+    h = norm_apply(params["norm1"], x, cfg.norm)
+    attn_out, kv = attention_decode(
+        params["attn"],
+        h,
+        cache["kv"],
+        pos,
+        n_kv=cfg.n_kv_heads,
+        rope_theta=cfg.rope_theta,
+        sliding_window=cfg.sliding_window,
+        softcap=cfg.logit_softcap,
+    )
+    x, _ = _ffn(params, x + attn_out, cfg)
+    return x, {"kv": kv}

@@ -6,24 +6,30 @@ generator's device), ``*_apply`` consumes it.  The weights keep the JAX
 layouts: ``wq``/``wk``/``wv`` are (d, heads, head_dim), ``wo`` is
 (heads, head_dim, d), MLP weights are (in, out), ``embed.table`` is
 (vocab, d).  Prefill attention goes through the flash-attention kernel
-(:func:`repro_torch.kernels.ops.flash_attention`) and RMSNorm through the
+(:func:`repro_torch.kernels.ops.flash_attention`), the one-token decode
+step through the decode-attention kernel
+(:func:`repro_torch.kernels.ops.decode_attention`) and RMSNorm through the
 rmsnorm kernel (:func:`repro_torch.kernels.ops.rmsnorm`).
+
+The KV cache keeps the decode kernel's layout, ``(B, KV, S, head_dim)``
+(the reference's is ``(B, S, KV, head_dim)``; :mod:`.convert` maps one to
+the other), so that a step transposes nothing.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any
+from typing import Any, NamedTuple
 
 import torch
 import torch.nn.functional as F
 
+from ..device import resolve_device
 from ..kernels import ops
 
 Params = dict[str, Any]
 
-# ROADMAP items of the features this slice of the port does not carry yet.
-ATTN_ITEM = "ROADMAP A2 (the rest of the attention layer: softcap, repeat_kv GQA, attention_decode)"
+# ROADMAP item of the features this slice of the port does not carry yet.
 ZOO_ITEM = "ROADMAP A9 (rest of the zoo: vision and audio frontends)"
 
 
@@ -114,11 +120,12 @@ def attention_apply(
     repeat_kv: bool = False,
 ) -> torch.Tensor:
     """Full (prefill) causal GQA attention through the flash-attention
-    kernel.  x: (B, S, d) → (B, S, d)."""
-    if softcap > 0:
-        raise NotImplementedError(f"attention logit softcap is not ported yet: {ATTN_ITEM}")
-    if repeat_kv:
-        raise NotImplementedError(f"repeat_kv GQA is not ported yet: {ATTN_ITEM}")
+    kernel.  x: (B, S, d) → (B, S, d).
+
+    ``repeat_kv`` changes only how the reference shards its einsums: its
+    ``jnp.repeat`` sends query head h to KV head h // (H / KV), which is the
+    kernel's own GQA map, so both settings make the same kernel call."""
+    del repeat_kv
     b, s, _ = x.shape
     q = _project(x, params["wq"])
     k = _project(x, params["wk"])
@@ -132,11 +139,108 @@ def attention_apply(
     # takes any stride but the head dimension's.
     ctx = ops.flash_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        causal=True, window=sliding_window,
+        causal=True, window=sliding_window, softcap=softcap,
     )
     h, hd = q.shape[2], q.shape[3]
     ctx = ctx.transpose(1, 2).reshape(b, s, h * hd)
     return ctx @ params["wo"].to(x.dtype).reshape(h * hd, -1)
+
+
+def init_kv_cache(
+    batch: int,
+    n_kv: int,
+    cache_len: int,
+    head_dim: int,
+    dtype: torch.dtype = torch.bfloat16,
+    device: str | torch.device = "cuda",
+) -> Params:
+    """A zeroed KV cache in the decode kernel's layout (B, KV, S, head_dim),
+    on the card unless the caller asks for the CPU."""
+    shape = (batch, n_kv, cache_len, head_dim)
+    dev = resolve_device(device)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=dev),
+        "v": torch.zeros(shape, dtype=dtype, device=dev),
+    }
+
+
+class DecodeSlot(NamedTuple):
+    """Where one decode step writes and what it reads, the same for every
+    layer whose cache has the same length: :func:`decode_slot` makes it once
+    per step."""
+
+    slot: torch.Tensor  # (1,) int64: the cache slot of this step's K and V
+    valid_len: torch.Tensor  # (B,) int32: the slots every row attends
+    sin: torch.Tensor  # (1, 1, head_dim / 2): the rotary tables at pos
+    cos: torch.Tensor
+
+
+def decode_slot(
+    pos: int | torch.Tensor,
+    batch: int,
+    cache_len: int,
+    *,
+    head_dim: int,
+    rope_theta: float,
+    sliding_window: int = 0,
+    device: str | torch.device,
+) -> DecodeSlot:
+    """The slot and the attended length of a step at ``pos`` (an int or a
+    0-d integer tensor, one position for every row, kept on the device: no
+    sync).  With a sliding window the cache is a ring and the slot is
+    ``pos mod S``; else the slot is ``pos``, clamped to the last slot once
+    ``pos`` passes it, as JAX's ``dynamic_update_slice`` clamps its start.
+    Every row attends its first ``min(pos + 1, S)`` slots: both of the
+    reference's masks, since a softmax does not see the order of the ring."""
+    if isinstance(pos, torch.Tensor):
+        pos = pos.to(device=device, dtype=torch.long).reshape(())
+    else:
+        pos = torch.full((), pos, dtype=torch.long, device=device)
+    slot = pos % cache_len if sliding_window > 0 else pos.clamp(0, cache_len - 1)
+    valid_len = (pos + 1).clamp(0, cache_len).to(torch.int32).expand(batch).contiguous()
+    sin, cos = rope_tables(pos.reshape(1, 1), head_dim, rope_theta)
+    return DecodeSlot(slot.reshape(1), valid_len, sin, cos)
+
+
+def attention_decode(
+    params: Params,
+    x: torch.Tensor,
+    cache: Params,
+    pos: int | torch.Tensor | DecodeSlot,
+    *,
+    n_kv: int,
+    rope_theta: float,
+    sliding_window: int = 0,
+    softcap: float = 0.0,
+) -> tuple[torch.Tensor, Params]:
+    """One-token decode with a KV cache, through the decode-attention
+    kernel.  x: (B, 1, d); ``pos``: the position of every row (an int or a
+    0-d integer tensor), or the :class:`DecodeSlot` that
+    :func:`decode_slot` made of it for this cache's length.  Returns
+    (out (B, 1, d), cache).
+
+    **The cache is updated in place** and returned (the reference returns a
+    new one): this step's K and V, rounded to the cache's type, go to the
+    step's slot, and every row attends the step's valid length (see
+    :func:`decode_slot`)."""
+    b = x.shape[0]
+    q = _project(x, params["wq"])
+    k = _project(x, params["wk"])
+    v = _project(x, params["wv"])
+    if k.shape[2] != n_kv:
+        raise ValueError(f"wk has {k.shape[2]} KV heads, expected {n_kv}")
+    at = pos if isinstance(pos, DecodeSlot) else decode_slot(
+        pos, b, cache["k"].shape[2], head_dim=q.shape[-1], rope_theta=rope_theta,
+        sliding_window=sliding_window, device=x.device,
+    )
+    q = rope_apply(q, at.sin, at.cos)
+    k = rope_apply(k, at.sin, at.cos)
+    for name, new in (("k", k), ("v", v)):
+        cache[name].index_copy_(2, at.slot, new.transpose(1, 2).to(cache[name].dtype))
+    ctx = ops.decode_attention(q[:, 0], cache["k"], cache["v"], at.valid_len, softcap=softcap)
+    h, hd = q.shape[2], q.shape[3]
+    out = ctx.reshape(b, 1, h * hd) @ params["wo"].to(x.dtype).reshape(h * hd, -1)
+    return out, cache
 
 
 # ------------------------------------------------------------------ mlp

@@ -1,10 +1,13 @@
 """Model assembly of the port: embeddings + decoder blocks + head.
 
-The counterpart of :class:`repro.models.Model` for the serving path's
-forward (``hidden_states`` / ``logits``).  Parameters are a dict of
+The counterpart of :class:`repro.models.Model` for serving: the forward
+(``hidden_states`` / ``logits``), ``prefill``, and one-token decoding over
+a KV cache (``init_cache`` / ``decode_step``).  Parameters are a dict of
 tensors in the JAX layout, passed explicitly as in the reference; the
 per-layer parameters are always a list of ``n_layers`` dicts (the scanned,
-stacked layout of the reference is unstacked by :mod:`.convert`).
+stacked layout of the reference is unstacked by :mod:`.convert`), and so
+is the cache: a list of ``n_layers`` dicts ``{"kv": {"k", "v"}}`` in the
+decode kernel's (B, KV, S, head_dim) layout.
 
 Numerics follow the reference, quirks included: the embedding is cast to
 ``cfg.dtype`` and then scaled by a float32 √d, which JAX promotes to
@@ -20,11 +23,13 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from .blocks import block_apply, check_supported, init_block
+from .blocks import block_apply, block_decode, check_supported, init_block, init_block_cache
 from .config import ModelConfig
 from .layers import (
     ZOO_ITEM,
+    DecodeSlot,
     _init,
+    decode_slot,
     embed_apply,
     init_embedding,
     init_norm,
@@ -89,6 +94,57 @@ class Model(nn.Module):
     def logits(self, params: Params, batch: dict[str, torch.Tensor]) -> torch.Tensor:
         h, _ = self.hidden_states(params, batch)
         return self._head(params, h)
+
+    # ------------------------------------------------------------- cache
+    def init_cache(
+        self, batch: int, cache_len: int, dtype: torch.dtype = torch.bfloat16
+    ) -> list[Params]:
+        """One zeroed KV cache per layer, on the model's device, bfloat16 by
+        default as in the reference (K/V are rounded to it when written and
+        read back to float32 by the step)."""
+        return [
+            init_block_cache(self.cfg, i, batch, cache_len, dtype, self.device)
+            for i in range(self.cfg.n_layers)
+        ]
+
+    # ----------------------------------------------------------- prefill
+    def prefill(
+        self, params: Params, batch: dict[str, torch.Tensor], cache_len: int
+    ) -> tuple[torch.Tensor, None]:
+        """The full prompt's forward → (last position's logits (B, 1, V),
+        None): as in the reference, no cache is filled."""
+        del cache_len
+        h, _ = self.hidden_states(params, batch)
+        return self._head(params, h[:, -1:]), None
+
+    # ------------------------------------------------------------ decode
+    def decode_step(
+        self,
+        params: Params,
+        tokens: torch.Tensor,
+        cache: list[Params],
+        pos: int | torch.Tensor,
+    ) -> tuple[torch.Tensor, list[Params]]:
+        """One token for every row.  tokens: (B, 1) ids; ``pos``: the
+        position of every row (an int or a 0-d tensor).  Returns (logits
+        (B, 1, V), cache); **the cache is updated in place** and returned."""
+        cfg = self.cfg
+        x = self._embed_inputs(params, tokens)
+        # The slot, the valid length and the rotary tables are the same for
+        # every layer of a cache length: made once per step.
+        slots: dict[int, DecodeSlot] = {}
+        new_cache = []
+        for i, (bp, c) in enumerate(zip(params["blocks"], cache, strict=True)):
+            n = c["kv"]["k"].shape[2]
+            if n not in slots:
+                slots[n] = decode_slot(
+                    pos, x.shape[0], n, head_dim=cfg.resolved_head_dim,
+                    rope_theta=cfg.rope_theta, sliding_window=cfg.sliding_window, device=x.device,
+                )
+            x, c2 = block_decode(bp, x, c, slots[n], cfg, i)
+            new_cache.append(c2)
+        x = norm_apply(params["final_norm"], x, cfg.norm)
+        return self._head(params, x), new_cache
 
     def forward(self, params: Params, batch: dict[str, torch.Tensor]) -> torch.Tensor:
         return self.logits(params, batch)

@@ -123,6 +123,105 @@ def test_decode_kernel_matches_plain(cuda_device, b, h, kv, s, hd, valid, dtype)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,h,kv,s,hd,valid,cache_dtype,softcap",
+    [
+        (8, 32, 2, 256, 128, [0, 256, 31, 33, 96, 97, 128, 200], torch.float32, 0.0),  # g 16 (GLM-4)
+        (4, 48, 1, 256, 128, [256, 0, 77, 255], torch.float32, 0.0),  # g 48 (Granite's MQA)
+        (8, 32, 2, 300, 128, [300, 0, 1, 299, 33, 64, 150, 0], torch.bfloat16, 0.0),  # f32 q, bf16 cache
+        (8, 12, 12, 256, 64, None, torch.bfloat16, 0.0),  # f32 q, bf16 cache, g 1
+        (3, 4, 2, 7, 32, [7, 0, 3], torch.bfloat16, 0.0),  # f32 q, bf16 cache, S < one tile
+        (2, 8, 2, 256, 64, [256, 40], torch.float32, 2.0),  # softcap
+        (8, 32, 2, 256, 128, [256, 0, 5, 64, 250, 129, 1, 256], torch.bfloat16, 2.0),  # softcap, bf16 cache
+    ],
+)
+def test_decode_kernel_groups_cache_types_and_softcap(cuda_device, b, h, kv, s, hd, valid,
+                                                       cache_dtype, softcap):
+    """Groups of 16 and 48 query heads (several passes of the 8-head
+    instantiation), float32 queries over a bfloat16 cache (read as stored,
+    computed in float32), and the softcap instantiations."""
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    q = _randn(g, (b, h, hd), cuda_device)
+    kc = _randn(g, (b, kv, s, hd), cuda_device, cache_dtype)
+    vc = _randn(g, (b, kv, s, hd), cuda_device, cache_dtype)
+    if valid is None:
+        vl = torch.full((b,), s, dtype=torch.int32, device=cuda_device)
+    else:
+        vl = torch.tensor(valid, dtype=torch.int32, device=cuda_device)
+    before = dec_mod.launches
+    out = ops.decode_attention(q, kc, vc, vl, softcap=softcap)
+    torch.cuda.synchronize()
+    assert dec_mod.launches == before + 1
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    want = ref.decode_attention_ref(q, kc, vc, vl, softcap=softcap)
+    tol = 2e-2 if cache_dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(out, want, rtol=tol, atol=tol)
+    assert (out[vl == 0] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,h,kv,s,hd,dtype,softcap,lengths",
+    [
+        (2, 32, 2, 256, 128, torch.float32, 0.0, None),  # GQA 16:1 (GLM-4)
+        (2, 8, 2, 256, 64, torch.float32, 2.0, [256, 100]),  # softcap
+        (4, 4, 4, 32, 64, torch.float32, 2.0, None),  # softcap, the smallest bucket
+        (2, 8, 2, 256, 128, torch.bfloat16, 2.0, None),  # softcap in bf16
+    ],
+)
+def test_flash_kernel_gqa16_and_softcap(cuda_device, b, h, kv, s, hd, dtype, softcap, lengths):
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    q = _randn(g, (b, h, s, hd), cuda_device, dtype)
+    k = _randn(g, (b, kv, s, hd), cuda_device, dtype)
+    v = _randn(g, (b, kv, s, hd), cuda_device, dtype)
+    lens = None if lengths is None else torch.tensor(lengths, dtype=torch.int32, device=cuda_device)
+    before = fa_mod.launches
+    out = ops.flash_attention(q, k, v, lens, softcap=softcap)
+    torch.cuda.synchronize()
+    assert fa_mod.launches == before + 1
+    want = ref.flash_attention_ref(q, k, v, lengths=lens, softcap=softcap)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,cache_dtype", [("glm4_9b", torch.float32), ("glm4_9b", torch.bfloat16),
+                                              ("arctic_480b", torch.bfloat16)])
+def test_decode_step_on_the_card_matches_the_cpu(cuda_device, arch, cache_dtype):
+    """Model.decode_step at .reduced() on the card (the decode kernel, with
+    pos a device tensor) against the same weights on the CPU, four steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    cfg = get_config(arch).reduced()
+    card, cpu = Model(cfg, device=cuda_device), Model(cfg, device="cpu")
+    params = card.init(torch.Generator(device=cuda_device).manual_seed(8))
+    cpu_params = _tree_to(params, "cpu")
+    c_card = card.init_cache(2, 8, dtype=cache_dtype)
+    c_cpu = cpu.init_cache(2, 8, dtype=cache_dtype)
+    before = dec_mod.launches
+    with torch.no_grad():
+        for i in range(4):
+            tok = torch.full((2, 1), 3 + i)
+            got, c_card = card.decode_step(params, tok.to(cuda_device), c_card,
+                                           torch.tensor(i, device=cuda_device))
+            want, c_cpu = cpu.decode_step(cpu_params, tok, c_cpu, i)
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)
+    assert dec_mod.launches == before + 4 * cfg.n_layers
+    tol = 2**-7 if cache_dtype == torch.bfloat16 else 1e-4
+    for a, b in zip(c_card, c_cpu):
+        torch.testing.assert_close(a["kv"]["k"].cpu().float(), b["kv"]["k"].float(), rtol=tol, atol=1e-4)
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b,kv,s", [(8, 8, 256), (8, 12, 256), (1, 1, 4096), (2, 8, 300), (2, 2, 32)])
 def test_decode_kernel_merges_any_number_of_tiles(cuda_device, b, kv, s):
     """From one 32-key tile (no merge) to 128 of them, every cache slot valid."""

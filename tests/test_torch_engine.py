@@ -21,7 +21,10 @@ import jax.numpy as jnp  # noqa: E402
 
 import repro.launch.serve as jax_serve  # noqa: E402
 import repro_torch.launch.serve as torch_serve  # noqa: E402
+from repro.configs import ARCHS as JAX_ARCHS  # noqa: E402
+from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.serving.engine import DecodeJaxExecutor, ServingEngine  # noqa: E402
+from repro_torch.configs import ARCHS, get_config  # noqa: E402
 from repro_torch.core import EmpiricalDistribution, OrlojScheduler, SchedulerConfig  # noqa: E402
 from repro_torch.core.tokensched import (  # noqa: E402
     FcfsTokenScheduler,
@@ -277,14 +280,18 @@ def test_port_imports_no_jax_and_nothing_of_the_reference():
     covered = {p.relative_to(ROOT).as_posix() for p in _port_files()}
     assert {"src/repro_torch/models/moe.py", "src/repro_torch/kernels/rmsnorm.py",
             "src/repro_torch/kernels/moe_gating.py", "src/repro_torch/configs/arctic_480b.py",
-            "scripts/gating_variants.py"} <= covered
+            "src/repro_torch/configs/glm4_9b.py", "scripts/gating_variants.py"} <= covered
 
 
 COPIES = [f"core/{m}.py" for m in (
     "__init__", "request", "distributions", "eventwheel", "requeststore", "hull",
     "priority", "profiler", "scheduler", "baselines", "eventloop", "tokensched",
-)] + ["serving/batcher.py", "serving/faults.py", "models/config.py", "configs/orloj_gpt.py",
-     "configs/arctic_480b.py"]
+)] + ["serving/batcher.py", "serving/faults.py", "models/config.py"] + [
+    f"configs/{m}.py" for m in (
+        "orloj_gpt", "arctic_480b", "glm4_9b", "dbrx_132b", "granite_34b", "olmo_1b",
+        "nemotron_4_340b",
+    )
+]
 
 
 @pytest.mark.parametrize("rel", COPIES)
@@ -292,3 +299,12 @@ def test_framework_free_copies_are_byte_identical(rel):
     ours = (ROOT / "src" / "repro_torch" / rel).read_bytes()
     theirs = (ROOT / "src" / "repro" / rel).read_bytes()
     assert ours == theirs, f"src/repro_torch/{rel} drifted from src/repro/{rel}"
+
+
+def test_port_archs_are_the_reference_archs_in_order():
+    """The port's registry is a subset of the reference's, in its order, and
+    every name resolves to the reference's configuration."""
+    assert set(ARCHS) <= set(JAX_ARCHS)
+    assert ARCHS == [a for a in JAX_ARCHS if a in ARCHS]
+    for arch in ARCHS:
+        assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(jax_get_config(arch))

@@ -96,10 +96,16 @@ def test_attention_apply(n_heads, n_kv, window):
 
 @pytest.mark.parametrize("option", ["softcap", "repeat_kv"])
 def test_attention_options_not_ported_raise(option):
-    params = _t(_np_tree(jl.init_attention(jax.random.PRNGKey(4), 32, 2, 2, 16)))
-    kw = {"softcap": 30.0} if option == "softcap" else {"repeat_kv": True}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tl.attention_apply(params, torch.zeros((1, 4, 32)), n_kv=2, rope_theta=1e4, **kw)
+    """The two options that raised until the decode path was ported now
+    match the reference: softcap (a cap of 2 bends O(1) scores) and the
+    repeat_kv formulation (GQA 4:2)."""
+    params = _np_tree(jl.init_attention(jax.random.PRNGKey(4), 32, 4, 2, 16))
+    kw = {"softcap": 2.0} if option == "softcap" else {"repeat_kv": True}
+    jx, tx = _x(np.random.default_rng(4), (2, 24, 32))
+    want = jl.attention_apply({k: jnp.asarray(v) for k, v in params.items()}, jx * 2,
+                              n_kv=2, rope_theta=1e4, **kw)
+    got = tl.attention_apply(_t(params), tx * 2, n_kv=2, rope_theta=1e4, **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
 @pytest.mark.parametrize("kind", ["gelu", "swiglu", "relu2"])
