@@ -24,7 +24,10 @@ Phases, each reported on its own lines; any failure exits non-zero:
    queries over a bfloat16 cache (to 2e-2 against the plain version given
    the same bf16 cache), flash at GQA 16:1, and both kernels with a softcap,
    also at the shapes decode ≡ forward and the timed steps give them
-   (flash at S 8 and hd 128, decode over 8 slots and at B 1 over 256);
+   (flash at S 8 and hd 128, decode over 8 slots and at B 1 over 256); and
+   both kernels at head_dim 16 (the engine-smoke toy: B <= 4, 4 heads, S 8
+   to 32) and 192 (Nemotron-4-340B: flash (8,96->8,256,192), decode at a
+   group of 12), in float32 and bf16, decode also over a bf16 cache;
 4. orloj_gpt: full width (12 layers, d 768, 12 heads, vocab 32000, weights
    from a seeded ``torch.Generator``) profiled for Eq. 3 and serving 100
    requests under the Orloj scheduler; the logits of a small batch held
@@ -44,7 +47,19 @@ Phases, each reported on its own lines; any failure exits non-zero:
    one step, peak memory; then its widths cut to 1 layer and a 512-word
    vocabulary, decode steps on the card against the same weights on the
    CPU with a float32 and a bfloat16 cache;
-7. one line per attention shape with the kernels' ratios to SDPA, to
+7. nemotron: Nemotron-4-340B at full width (d 18432, 96 query heads on 8 KV
+   heads of 192, vocab 256000) cut to 1 layer (51.6 GB of float32 weights;
+   GLM-4-9B's are freed first): decode ≡ forward at head_dim 192;
+8. engine-smoke: the paper's real-engine grid (``grid.engine_smoke()``:
+   bimodal, ORLOJ against Nexus at SLO 1.5 and 5) through the port's
+   ``runner.run_specs`` on the card, on the toy ``orloj_gpt`` (flash at
+   head_dim 16) and then on ``engine:orloj_gpt_paper`` (full width, flash
+   at 64): per cell the finish rate, the sim twin's, the drift, the batch
+   MAPE, the batches, the profiled c0/c1 and the flash launches of its
+   window; the artifact under ``build/``, the drift report per model, and
+   every flash call of one re-served cell of each model held against the
+   plain version;
+9. one line per attention shape with the kernels' ratios to SDPA, to
    their plain versions and to their bounds, then the ``kernels`` line
    (JSON): launches on the main paths, kernel, plain and library times,
    and the least time the card could take (for flash also on the tensor
@@ -55,14 +70,15 @@ Phases, each reported on its own lines; any failure exits non-zero:
 Phases 4 and 5 also run decode ≡ forward: a prompt of a few tokens for 2
 rows through ``Model.logits`` and the same tokens one by one through
 ``init_cache(dtype=float32)`` and ``decode_step``, held to LOGITS_TOL;
-phase 6 runs it for glm4.  Every kernel call of those runs is recorded and
+phases 6 and 7 run it for glm4 and nemotron.  Every kernel call of those runs is recorded and
 held against its plain version on the call's own inputs, at the phase 3
 tolerances (one line per kernel and shape; ``path_calls_held`` and
 ``path_max_abs_err`` in the ``kernels`` line).
 
 The launch counters are set to 0 just before each serve, token and
-decode ≡ forward path and read just after; the line's launches are their
-sums.  Comparisons and timings run outside those windows.  Each phase
+decode ≡ forward path and each engine-smoke cell, and read just after; the
+line's launches are their sums.  Every path checks that no parameter
+requires grad (the kernels refuse such inputs under grad mode).  Comparisons and timings run outside those windows.  Each phase
 prints its seconds.  The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -271,9 +287,14 @@ def ptxas_report(out: str) -> list[tuple[str, str]]:
 
     report, name, spill = [], None, ""
     for ln in out.splitlines():
-        m = re.search(r"Function properties for .*?\d([a-z_]+_kernel)I((?:f|13__nv_bfloat16)+)((?:L[a-z]\d+E)+)", ln)
+        # A type named twice is mangled the second time as a substitution
+        # (S_, S0_, ...): bf16 queries over a bf16 cache read "13__nv_bfloat16S2_".
+        m = re.search(r"Function properties for .*?\d([a-z_]+_kernel)I((?:f|13__nv_bfloat16|S\d*_)+)"
+                      r"((?:L[a-z]\d+E)+)", ln)
         if m:
-            types = ["float" if t == "f" else "bf16" for t in re.findall(r"f|13__nv_bfloat16", m.group(2))]
+            types: list[str] = []
+            for t in re.findall(r"f|13__nv_bfloat16|S\d*_", m.group(2)):
+                types.append("float" if t == "f" else "bf16" if t[0] == "1" else types[-1])
             args = [*types, *re.findall(r"L[a-z](\d+)E", m.group(3))]
             name = f"{m.group(1)}<{','.join(args)}>"
             continue
@@ -331,6 +352,23 @@ def phase_kernels_vs_plain() -> dict[str, float]:
         ("softcap 2 (2,8->2,256,64) lengths [256,100] f32", 2, 8, 2, 256, 64, f32, [256, 100], 0, 2.0),
         ("softcap 2 smallest bucket (4,4,32,64) f32", 4, 4, 4, 32, 64, f32, None, 0, 2.0),
         ("softcap 2 bf16 (2,8->2,256,128)", 2, 8, 2, 256, 128, bf16, None, 0, 2.0),
+        # head_dim 16: the engine-smoke toy (B <= 4, 4 heads, its buckets 8 ... 32)
+        ("toy hd 16 S=8 (4,4,8,16) f32", 4, 4, 4, 8, 16, f32, None, 0, 0.0),
+        ("toy hd 16 S=16 (4,4,16,16) f32", 4, 4, 4, 16, 16, f32, None, 0, 0.0),
+        ("toy hd 16 S=24 lengths [24,9,1,17] f32", 4, 4, 4, 24, 16, f32, [24, 9, 1, 17], 0, 0.0),
+        ("toy hd 16 S=32 (4,4,32,16) f32", 4, 4, 4, 32, 16, f32, None, 0, 0.0),
+        ("toy hd 16 S=24 (2,4,24,16) bf16", 2, 4, 4, 24, 16, bf16, None, 0, 0.0),
+        ("hd 16 (8,12->4,256,16) lengths f32", 8, 12, 4, 256, 16, f32,
+         [256, 70, 17, 1, 200, 128, 64, 33], 0, 0.0),
+        ("hd 16 bf16 (2,8->2,300,16)", 2, 8, 2, 300, 16, bf16, None, 0, 0.0),
+        ("softcap 2 hd 16 (2,4,32,16) f32", 2, 4, 4, 32, 16, f32, None, 0, 2.0),
+        # head_dim 192: Nemotron-4-340B
+        ("nemotron (8,96->8,256,192) f32 causal", 8, 96, 8, 256, 192, f32, None, 0, 0.0),
+        ("nemotron (8,96->8,256,192) bf16", 8, 96, 8, 256, 192, bf16, None, 0, 0.0),
+        ("nemotron decode ≡ forward (2,96->8,8,192) f32", 2, 96, 8, 8, 192, f32, None, 0, 0.0),
+        ("hd 192 ragged S=300 lengths [300,131] f32", 2, 8, 2, 300, 192, f32, [300, 131], 0, 0.0),
+        ("hd 192 smallest bucket (4,4,32,192) bf16", 4, 4, 4, 32, 192, bf16, None, 0, 0.0),
+        ("softcap 2 hd 192 (2,8->2,256,192) f32", 2, 8, 2, 256, 192, f32, [256, 100], 0, 2.0),
     ]
     for name, b, h, kv, s, hd, dt, lens, window, cap in flash_cases:
         q = _randn(gen, (b, h, s, hd), dt)
@@ -352,6 +390,10 @@ def phase_kernels_vs_plain() -> dict[str, float]:
             main_err["arctic_flash_attention"] = err
         if name.startswith("glm4 GQA 16:1"):
             main_err["glm4_flash_attention"] = err
+        if name.startswith("toy hd 16 S=32"):
+            main_err["toy_flash_attention"] = err
+        if name.startswith("nemotron (8,96->8,256,192) f32"):
+            main_err["nemotron_flash_attention"] = err
 
     decode_cases = [
         ("main path (8,12,256,64) f32", 8, 12, 12, 256, 64, None),
@@ -378,6 +420,19 @@ def phase_kernels_vs_plain() -> dict[str, float]:
         ("softcap 2 (2,8->2,256,64) valid_len [256,40] f32", 2, 8, 2, 256, 64, [256, 40]),
         ("softcap 2 f32 q, bf16 cache: glm4 (8,32->2,256,128)", 8, 32, 2, 256, 128,
          [256, 0, 5, 64, 250, 129, 1, 256]),
+        # head_dim 16 (half-warps own a key's 16 dims) and 192 (6 dims a lane)
+        ("toy hd 16 (4,4,32,16) f32", 4, 4, 4, 32, 16, None),
+        ("hd 16 g 4 S=7 (3,8->2,7,16) valid_len [7,0,3] f32", 3, 8, 2, 7, 16, [7, 0, 3]),
+        ("hd 16 bf16 (4,4,300,16) valid_len [300,1,0,33]", 4, 4, 4, 300, 16, [300, 1, 0, 33]),
+        ("f32 q, bf16 cache: hd 16 g 8 (8,16->2,256,16)", 8, 16, 2, 256, 16,
+         [0, 256, 31, 33, 96, 97, 128, 200]),
+        ("softcap 2 hd 16 (2,4,64,16) valid_len [64,13] f32", 2, 4, 4, 64, 16, [64, 13]),
+        ("nemotron g 12 (8,96->8,256,192) f32", 8, 96, 8, 256, 192, None),
+        ("f32 q, bf16 cache: nemotron g 12 (8,96->8,256,192)", 8, 96, 8, 256, 192,
+         [256, 0, 5, 64, 250, 129, 1, 256]),
+        ("nemotron g 12 bf16 (2,96->8,256,192) valid_len [255,31]", 2, 96, 8, 256, 192, [255, 31]),
+        ("hd 192 g 1 (2,8->8,1000,192) valid_len [1000,3] f32", 2, 8, 8, 1000, 192, [1000, 3]),
+        ("softcap 2 hd 192 (2,8->2,256,192) valid_len [256,40] f32", 2, 8, 2, 256, 192, [256, 40]),
     ]
     for name, b, h, kv, s, hd, valid in decode_cases:
         # The name says the types: "f32 q, bf16 cache", else one type (bf16
@@ -409,6 +464,10 @@ def phase_kernels_vs_plain() -> dict[str, float]:
             main_err["glm4_decode_attention"] = err
         if name.startswith("f32 q, bf16 cache: glm4"):
             main_err["glm4_bf16_cache_decode_attention"] = err
+        if name.startswith("toy hd 16"):
+            main_err["toy_decode_attention"] = err
+        if name.startswith("nemotron g 12 (8"):
+            main_err["nemotron_decode_attention"] = err
 
     rms_cases = [
         ("main path (2048,7168) f32", 2048, 7168, f32),
@@ -868,6 +927,7 @@ def phase_step_card_vs_cpu(cfg, label: str) -> None:
 
     card = Model(cfg, device="cuda")
     params = card.init(torch.Generator(device="cuda").manual_seed(2))
+    _check_no_grad(params, label)
     cpu, cpu_params = Model(cfg, device="cpu"), _to_cpu(params)
     log(f"{label}: {cfg.n_layers} layer at full width, vocab {cfg.vocab_size}: "
         f"{card.param_count(params)} params")
@@ -948,8 +1008,10 @@ def _attention_entries(gen, b, h, kv, s, hd) -> tuple[dict, dict]:
 
 def phase_kernel_line(counts: dict[str, int], errs: dict[str, float]) -> dict:
     """One entry per kernel.  Flash and decode are timed at orloj_gpt's
-    (8,12,256,64) as before, under ``arctic`` at Arctic's (8,56->8,256,128)
-    and under ``glm4`` at GLM-4's (8,32->2,256,128); RMSNorm at Arctic's (2048, 7168) and the gating at
+    (8,12,256,64) as before, under ``arctic`` at Arctic's (8,56->8,256,128),
+    under ``glm4`` at GLM-4's (8,32->2,256,128), under ``toy`` at the
+    engine-smoke toy's largest batch (4,4,32,16) and under ``nemotron`` at
+    Nemotron-4-340B's (8,96->8,256,192); RMSNorm at Arctic's (2048, 7168) and the gating at
     its (2048, 128) with k 2, and also at T = 8, 32 and 256 (``by_T``)."""
     import torch
     import torch.nn.functional as F
@@ -962,6 +1024,8 @@ def phase_kernel_line(counts: dict[str, int], errs: dict[str, float]) -> dict:
     flash, decode = _attention_entries(gen, 8, 12, 12, 256, 64)
     a_flash, a_decode = _attention_entries(gen, 8, 56, 8, 256, 128)
     g_flash, g_decode = _attention_entries(gen, 8, 32, 2, 256, 128)
+    t_flash, t_decode = _attention_entries(gen, 4, 4, 4, 32, 16)
+    n_flash, n_decode = _attention_entries(gen, 8, 96, 8, 256, 192)
     flash = {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -969,6 +1033,8 @@ def phase_kernel_line(counts: dict[str, int], errs: dict[str, float]) -> dict:
         "launches": counts["flash_attention"], "max_abs_err": errs["flash_attention"], **flash,
         "arctic": {"max_abs_err": errs["arctic_flash_attention"], **a_flash},
         "glm4": {"max_abs_err": errs["glm4_flash_attention"], **g_flash},
+        "toy": {"max_abs_err": errs["toy_flash_attention"], **t_flash},
+        "nemotron": {"max_abs_err": errs["nemotron_flash_attention"], **n_flash},
     }
     decode = {
         "name": "decode_attention", "route": "cuda",
@@ -978,6 +1044,8 @@ def phase_kernel_line(counts: dict[str, int], errs: dict[str, float]) -> dict:
         "arctic": {"max_abs_err": errs["arctic_decode_attention"], **a_decode},
         "glm4": {"max_abs_err": errs["glm4_decode_attention"],
                  "bf16_cache_max_abs_err": errs["glm4_bf16_cache_decode_attention"], **g_decode},
+        "toy": {"max_abs_err": errs["toy_decode_attention"], **t_decode},
+        "nemotron": {"max_abs_err": errs["nemotron_decode_attention"], **n_decode},
     }
 
     x = _randn(gen, (2048, 7168), torch.float32)
@@ -1045,6 +1113,7 @@ def run_orloj_gpt(ecfg) -> list[dict[str, int]]:
 
     t0 = time.perf_counter()
     engine = TorchServingEngine(CONFIG, ecfg, seed=0)
+    _check_no_grad(engine.params, "orloj_gpt")
     n_params = engine.model.param_count(engine.params)
     log(f"serve: {CONFIG.name} {CONFIG.n_layers} layers, d {CONFIG.d_model}, "
         f"{n_params} params, computing in float32 (built in {time.perf_counter() - t0:.1f} s)")
@@ -1071,6 +1140,7 @@ def run_arctic(ecfg) -> list[dict[str, int]]:
     t0 = time.perf_counter()
     engine = TorchServingEngine(cfg, ecfg, seed=0)
     torch.cuda.synchronize()
+    _check_no_grad(engine.params, "arctic")
     n_params = engine.model.param_count(engine.params)
     n_bytes = _nbytes(engine.params)
     log(f"arctic: {cfg.name} cut to {cfg.n_layers} of {CONFIG.n_layers} layers at full width: d {cfg.d_model}, "
@@ -1087,6 +1157,7 @@ def run_arctic(ecfg) -> list[dict[str, int]]:
     small = dataclasses.replace(cfg, n_experts=8, vocab_size=512)
     model = Model(small, device="cuda")
     params = model.init(torch.Generator(device="cuda").manual_seed(1))
+    _check_no_grad(params, "arctic card vs CPU")
     log(f"arctic card vs CPU: {small.n_layers} layer at full width with {small.n_experts} experts, "
         f"vocab {small.vocab_size}: {model.param_count(params)} params")
     phase_card_vs_cpu(model, params, "arctic card vs CPU")
@@ -1117,6 +1188,7 @@ def run_glm4() -> list[dict[str, int]]:
     model = Model(CONFIG, device="cuda")
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
+    _check_no_grad(params, "glm4")
     log(f"glm4: {CONFIG.name} {CONFIG.n_layers} layers at full width: d {CONFIG.d_model}, "
         f"{CONFIG.n_heads} query heads on {CONFIG.n_kv_heads} KV heads of {CONFIG.resolved_head_dim}, "
         f"{CONFIG.mlp} d_ff {CONFIG.d_ff}, vocab {CONFIG.vocab_size}; {model.param_count(params)} params, "
@@ -1128,6 +1200,132 @@ def run_glm4() -> list[dict[str, int]]:
     del model, params
     _release()
     phase_step_card_vs_cpu(dataclasses.replace(CONFIG, n_layers=1, vocab_size=512), "glm4 card vs CPU")
+    _release()
+    return windows
+
+
+NEMOTRON_LAYERS = 1  # 51.6 GB of float32 weights at one layer (2 × 4.72 G in embedding and head)
+
+
+def _check_no_grad(params, label: str) -> None:
+    """The kernels refuse inputs that require grad while grad mode is on;
+    the serving and decode paths run under no_grad and with parameters that
+    require none.  Checked on every path, so that the refusal cannot trip one."""
+    if any(t.requires_grad for t in _leaves(params)):
+        raise SystemExit(f"{label}: a parameter requires grad")
+
+
+def run_nemotron() -> list[dict[str, int]]:
+    """Head size 192 on a model path: Nemotron-4-340B at full width (d 18432,
+    96 query heads on 8 KV heads of 192, relu2 d_ff 73728, vocab 256000) cut
+    to NEMOTRON_LAYERS, in float32: decode ≡ forward, every kernel call held."""
+    import torch
+
+    from repro_torch.configs.nemotron_4_340b import CONFIG
+    from repro_torch.models import Model
+
+    cfg = dataclasses.replace(CONFIG, n_layers=NEMOTRON_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    _check_no_grad(params, "nemotron")
+    log(f"nemotron: {cfg.name} cut to {cfg.n_layers} of {CONFIG.n_layers} layers at full width: "
+        f"d {cfg.d_model}, {cfg.n_heads} query heads on {cfg.n_kv_heads} KV heads of "
+        f"{cfg.resolved_head_dim}, {cfg.mlp} d_ff {cfg.d_ff}, vocab {cfg.vocab_size} (uncut); "
+        f"{model.param_count(params)} params, {_nbytes(params)} bytes of float32 weights; peak "
+        f"{torch.cuda.max_memory_allocated()} bytes after init (built in {time.perf_counter() - t0:.1f} s)")
+    windows = [phase_decode_matches_forward(model, params, "nemotron")]
+    log(f"nemotron: peak {torch.cuda.max_memory_allocated()} bytes over decode ≡ forward")
+    del model, params
+    _release()
+    return windows
+
+
+ENGINE_SMOKE_ARTIFACT = ROOT / "build" / "BENCH_eval_torch_chip_smoke.json"
+
+
+def run_engine_smoke() -> list[dict[str, int]]:
+    """The paper's real-engine evaluation on the card: ``grid.engine_smoke()``
+    (bimodal, ORLOJ against Nexus at SLO 1.5 and 5, 48 requests a cell)
+    through the port's ``runner.run_specs``, on the toy ``orloj_gpt`` (d 64
+    over 4 heads: flash at head_dim 16) and then the same 4 specs on
+    ``engine:orloj_gpt_paper`` (full width, 12 layers, d 768: flash at
+    head_dim 64).  Each cell is its own launch window (the first of a model
+    also builds and profiles its engine).  Then one cell of each model is
+    served again with every flash call recorded and held against the plain
+    version; those runs are outside the windows.  Writes the artifact under
+    build/ and prints the drift report per model."""
+    import numpy as np
+    import torch
+
+    from repro_torch.eval import evaluate_claims, runner, substrate
+    from repro_torch.eval.grid import engine_smoke
+    from repro_torch.kernels import ops
+
+    substrate.set_engine_device("cuda")
+    specs = engine_smoke()
+    models = {"orloj_gpt": specs,
+              "orloj_gpt_paper": [dataclasses.replace(s, substrate="engine:orloj_gpt_paper",
+                                                      tag=s.tag.replace("engine/", "engine:paper/"))
+                                  for s in specs]}
+    windows, results = [], []
+    for model, cells in models.items():
+        for spec in cells:
+            ops.reset_launch_counts()
+            (r,) = runner.run_specs([spec], jobs=1)
+            counts = ops.launch_counts()
+            windows.append(counts)
+            results.append(r)
+            m = r.substrate_meta
+            log(f"engine-smoke {model} {spec.tag}: finish {r.finish_rate:.4f}, sim twin "
+                f"{m['sim_twin']['finish_rate']:.4f}, finish_rate_drift {m['finish_rate_drift']:+.4f}, "
+                f"batch_mape {m['batch_mape']:.4f}, batches {m['n_batches']}, c0 {m['c0_ms']:.4f} ms, "
+                f"c1 {m['c1_ms_per_token'] * 1e3:.5f} ms/ktok, p50 {r.latency_p50_ms:.4f} ms, "
+                f"p99 {r.latency_p99_ms:.4f} ms; flash launches {counts['flash_attention']} "
+                f"(window: {counts}); {r.wall_s:.2f} s")
+            if r.n_total != spec.n_requests or m["n_batches"] <= 0 or counts["flash_attention"] <= 0:
+                raise SystemExit(f"engine-smoke {spec.tag}: {r.n_total} requests, {m['n_batches']} "
+                                 f"batches, {counts['flash_attention']} flash launches")
+        engine, _ = substrate._get_engine(model)
+        cfg = engine.model.cfg
+        _check_no_grad(engine.params, f"engine-smoke {model}")
+        want_hd = 16 if model == "orloj_gpt" else 64
+        log(f"engine-smoke {model}: {cfg.name}, {cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} "
+            f"heads of {cfg.resolved_head_dim}, buckets {list(engine.cfg.buckets)}, batches "
+            f"{list(engine.cfg.batch_sizes)}, {engine.model.param_count(engine.params)} params")
+        if cfg.resolved_head_dim != want_hd:
+            raise SystemExit(f"engine-smoke {model}: head_dim {cfg.resolved_head_dim}, not {want_hd}")
+        # Every flash call of one cell, on its own inputs, against the plain version.
+        with _kernel_log() as calls:
+            runner.run_specs([cells[0]], jobs=1)
+        flash_calls = [c for c in calls if c[0] == "flash_attention"]
+        if not flash_calls:
+            raise SystemExit(f"engine-smoke {model}: the held run made no flash call")
+        with torch.no_grad():
+            _hold_path_calls(flash_calls, f"engine-smoke {model} {cells[0].tag} (served again)")
+        del calls, flash_calls
+        if model == "orloj_gpt":
+            big = max(engine.cfg.batch_sizes), max(engine.cfg.buckets)
+            tokens = np.ones(big, np.int32)
+            _profile(lambda: engine.executor._run(tokens), "engine-smoke orloj_gpt",
+                     f"prefill {big} (the toy's largest batch)")
+        del engine
+
+    claims = evaluate_claims(results)
+    drift = substrate.drift_report(results)
+    ENGINE_SMOKE_ARTIFACT.parent.mkdir(parents=True, exist_ok=True)
+    runner.write_artifact(str(ENGINE_SMOKE_ARTIFACT), results, grid="engine-smoke", claims=claims,
+                          extra={"engine_drift": drift})
+    log(f"engine-smoke: {len(results)} cells -> {ENGINE_SMOKE_ARTIFACT.relative_to(ROOT)}; claims "
+        + ", ".join(f"{c.name} {'PASS' if c.passed else 'FAIL'}" for c in claims))
+    for model in models:
+        d = substrate.drift_report([r for r in results if r.substrate_meta["model"] == model])
+        log(f"engine-smoke drift {model}: {d['n_cells']} cells, |finish-rate drift| mean "
+            f"{d['mean_abs_finish_rate_drift']:.4f} max {d['max_abs_finish_rate_drift']:.4f}, "
+            f"batch-time MAPE mean {d['mean_batch_mape']:.4f}")
+    substrate._ENGINE_CACHE.clear()
     _release()
     return windows
 
@@ -1170,7 +1368,8 @@ def main() -> int:
 
     ecfg = EngineConfig()
     windows = (timed("orloj_gpt", run_orloj_gpt, ecfg) + timed("arctic", run_arctic, ecfg)
-               + timed("glm4", run_glm4))
+               + timed("glm4", run_glm4) + timed("nemotron", run_nemotron)
+               + timed("engine-smoke", run_engine_smoke))
     counts = {name: sum(w[name] for w in windows) for name in _build.KERNELS}
 
     kernels = timed("kernel line", phase_kernel_line, counts, errs)

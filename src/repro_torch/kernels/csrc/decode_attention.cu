@@ -98,7 +98,11 @@ constexpr int kHeadWarps = G / kHeadsPerWarp<G>;
 constexpr int kMaxWarps = 8;
 
 // Rows of a staged tile, padded by 16 bytes so that a lane reading its own
-// key's row in 16-byte pieces meets no bank conflict.
+// key's row in 16-byte pieces meets no bank conflict.  Shared memory at hd
+// 192 (the most): the static q_s and acc_s hold G·HD floats each (12 KB at
+// G = 8); a float32 tile slot is 2·32·196·4 = 49 KB, so a small group's
+// block stages 3 slots (147 KB) under kMaxStageBytes and a group of 4 to 8
+// one; every block of a cluster sits on its own SM, within its 227 KB.
 template <typename T, int HD>
 constexpr int kRowLen = HD + 16 / static_cast<int>(sizeof(T));
 
@@ -126,7 +130,14 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
                             int H, int KV, int S, float sm_scale, float softcap) {
   namespace cg = cooperative_groups;
   constexpr int GW = kHeadsPerWarp<G>;
-  constexpr int DPL = HD / 32;  // output dims each lane owns: lane*DPL ...
+  // P·V: LPK lanes share a key's row, each owning DPL output dims, and a
+  // warp step takes KPS keys.  At hd >= 32 the whole warp reads one row
+  // (DPL = hd / 32: 1 at hd 32 ... 6 at hd 192); at hd 16 each half-warp
+  // takes its own key, one dim a lane, and the halves' sums are added
+  // once the walk is over (both saw the same running maxima).
+  constexpr int LPK = HD >= 32 ? 32 : HD;
+  constexpr int KPS = 32 / LPK;
+  constexpr int DPL = HD / LPK;
   constexpr int LD = kRowLen<T, HD>;
   constexpr int CHUNK = 16 / static_cast<int>(sizeof(T));  // elements per cp.async
   constexpr int CPR = HD / CHUNK;                           // cp.async per row
@@ -147,6 +158,9 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
   const int slots = (blockDim.x >> 5) / kHeadWarps<G>;
   const int slot = warp / kHeadWarps<G>;
   const int h0 = (warp % kHeadWarps<G>) * GW;  // this warp's first head, within a pass
+  const int dim0 = (lane % LPK) * DPL;  // this lane's first output dim
+  const int sub = lane / LPK;           // which of a step's KPS keys this lane takes
+  const bool writer = sub == 0;         // lanes that hold the summed output dims
   const int step_keys = slots * kTile;
   const int n = min(max(valid_len[b], 0), S);
   const size_t kv_base = (static_cast<size_t>(b) * KV + c) * static_cast<size_t>(S) * HD;
@@ -219,10 +233,12 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
         for (int e = 0; e < DPL; ++e) acc[j][e] *= alpha;
       }
       // acc += p·V: key u's probabilities come from lane u; each lane reads
-      // its DPL dims of V row u.
+      // its DPL dims of V row u.  With KPS = 2 the last step may take row
+      // nt (< 32), which is zeros with p = 0.
 #pragma unroll 8
-      for (int u = 0; u < nt; ++u) {
-        const T* vr = v_t + u * LD + lane * DPL;
+      for (int u0 = 0; u0 < nt; u0 += KPS) {
+        const int u = u0 + sub;
+        const T* vr = v_t + u * LD + dim0;
         float vx[DPL];
         if constexpr (DPL == 4) {
           const float4 v4 = load4(vr);
@@ -243,6 +259,13 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
       }
     }
 
+    if constexpr (KPS > 1) {
+#pragma unroll
+      for (int j = 0; j < GW; ++j)
+#pragma unroll
+        for (int e = 0; e < DPL; ++e) acc[j][e] += __shfl_xor_sync(0xffffffffu, acc[j][e], LPK);
+    }
+
     // Merge the slots' states in shared memory.  A slot that saw no key has
     // m = -1e30 and l = acc = 0, so it adds nothing; valid_len == 0 leaves
     // every row 0.  A block of one slot has nothing to merge: its warps'
@@ -250,19 +273,19 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
     if (slots == 1) {
 #pragma unroll
       for (int j = 0; j < GW; ++j) {
-        if (h0 + j >= gj) continue;
+        if (h0 + j >= gj || !writer) continue;
         if (blocks == 1) {
           const float inv = 1.f / fmaxf(l[j], 1e-30f);
 #pragma unroll
           for (int e = 0; e < DPL; ++e)
-            out[q_base + (h0 + j) * HD + lane * DPL + e] = from_float<TQ>(acc[j][e] * inv);
+            out[q_base + (h0 + j) * HD + dim0 + e] = from_float<TQ>(acc[j][e] * inv);
         } else {
           if (lane == 0) {
             m_s[h0 + j] = m[j];
             l_s[h0 + j] = l[j];
           }
 #pragma unroll
-          for (int e = 0; e < DPL; ++e) acc_s[h0 + j][lane * DPL + e] = acc[j][e];
+          for (int e = 0; e < DPL; ++e) acc_s[h0 + j][dim0 + e] = acc[j][e];
         }
       }
     }
@@ -274,8 +297,10 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
           wm_s[slot][h0 + j] = m[j];
           wl_s[slot][h0 + j] = l[j];
         }
+        if (writer) {
 #pragma unroll
-        for (int e = 0; e < DPL; ++e) state[(slot * G + h0 + j) * HD + lane * DPL + e] = acc[j][e];
+          for (int e = 0; e < DPL; ++e) state[(slot * G + h0 + j) * HD + dim0 + e] = acc[j][e];
+        }
       }
       __syncthreads();
       for (int i = threadIdx.x; i < gj * HD; i += blockDim.x) {
@@ -401,12 +426,16 @@ cudaError_t launch(const Args& a) {
 template <typename TQ, typename T, bool SOFTCAP>
 cudaError_t dispatch_hd(int hd, const Args& a) {
   switch (hd) {
+    case 16:
+      return launch<TQ, T, 16, SOFTCAP>(a);
     case 32:
       return launch<TQ, T, 32, SOFTCAP>(a);
     case 64:
       return launch<TQ, T, 64, SOFTCAP>(a);
     case 128:
       return launch<TQ, T, 128, SOFTCAP>(a);
+    case 192:
+      return launch<TQ, T, 192, SOFTCAP>(a);
     default:
       return cudaErrorInvalidValue;
   }
@@ -423,8 +452,8 @@ cudaError_t dispatch_softcap(int hd, const Args& a) {
 // q: (B, H, hd) and out: (B, H, hd) of the storage type `q_dtype`;
 // k_cache, v_cache: (B, KV, S, hd) of `cache_dtype`, all contiguous;
 // valid_len: (B,) int32.  The pairs taken: float32 / float32, bfloat16 /
-// bfloat16, and float32 queries over a bfloat16 cache.  hd must be 32, 64
-// or 128; softcap > 0 caps the scaled scores at ±softcap (tanh), 0 leaves
+// bfloat16, and float32 queries over a bfloat16 cache.  hd must be 16, 32,
+// 64, 128 or 192; softcap > 0 caps the scaled scores at ±softcap (tanh), 0 leaves
 // them.  Launches one cluster of blocks per (KV head, batch row) on
 // `stream` and returns the launch's error code (0 when it was accepted).
 extern "C" int decode_attention_launch(const void* q, const void* k_cache, const void* v_cache,

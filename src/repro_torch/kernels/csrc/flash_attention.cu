@@ -13,7 +13,7 @@
 // nothing is padded.
 //
 // What bounds it on the H100: operations, at the serving path's shapes
-// (S <= 256, hd 64 or 128: ~S/2 multiply-adds per loaded element).  Float32
+// (S <= 256, hd 16 to 192: ~S/2 multiply-adds per loaded element).  Float32
 // on the SIMT cores tops out at 67 TFLOP/s, so both products run on the
 // tensor cores with mma.sync m16n8k8 in TF32 (495 TFLOP/s dense).  One TF32
 // pass keeps 10 mantissa bits and misses the float32 tolerance (~1e-3 at
@@ -33,7 +33,8 @@
 //
 // The design around the products: each warp owns 16 query rows, a block
 // 2 or 4 warps (32 query rows and 32-key tiles for S <= 32, the smallest
-// bucket; else 64 rows, and 16-key tiles at hd 128 or 64-key ones below);
+// bucket, 16-key ones at hd 192; else 64 rows, and 16-key tiles at hd 128
+// and 192, 64-key ones below);
 // K/V tiles go into a two-stage shared-memory ring with 16-byte cp.async,
 // so the next tile lands while this one is computed on; the rows of Q, K
 // and V in shared memory are padded so that every fragment load is free of
@@ -151,15 +152,18 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // ------------------------------------------------------------ tiling
 // Shared-memory row lengths (in elements), chosen for conflict-free
 // fragment loads: Q and K are read as 8-byte pairs by rows g = 0..7 and
-// pair index t = 0..3 (row stride = 8 words mod 32); V as single elements
-// of rows 2t and 2t+1 (float32: row stride = 4 words mod 32) or 16-bit
-// halves (bf16: 4 words mod 32).  Every row stays a multiple of 16 bytes.
+// pair index t = 0..3, half a warp (rows 0..3 or 4..7) at a time, so a row
+// stride of 8 or 24 words mod 32 keeps the four rows on distinct banks
+// (bf16 at hd 16 takes 48 elements = 24 words, where HD + 16 would give 16);
+// V as single elements of rows 2t and 2t+1 (float32: row stride = 4 words
+// mod 32) or 16-bit halves (bf16: 4 words mod 32, 12 at hd 16).  Every row
+// stays a multiple of 16 bytes.
 template <typename T, int HD, int BK>
 struct Tile {
   static constexpr bool kF32 = sizeof(T) == 4;
   static constexpr int kBlockK = BK;  // keys per tile
-  static constexpr int kQS = kF32 ? HD + 8 : HD + 16;
-  static constexpr int kKS = kF32 ? HD + 8 : HD + 16;
+  static constexpr int kQS = kF32 ? HD + 8 : (HD == 16 ? 48 : HD + 16);
+  static constexpr int kKS = kQS;
   static constexpr int kVS = kF32 ? HD + 4 : HD + 8;
   static constexpr int kNT = kBlockK / 8;  // 8-key column blocks of a score tile
   static constexpr int kNO = HD / 8;       // 8-wide column blocks of the output
@@ -483,27 +487,37 @@ cudaError_t launch(const Args& a) {
 }
 
 template <int HD>
-constexpr int kLargeBlockK = HD == 128 ? 16 : 64;
+constexpr int kLargeBlockK = HD >= 128 ? 16 : 64;
+template <int HD>
+constexpr int kSmallBlockK = HD >= 192 ? 16 : 32;
 
 template <typename T, int HD, bool SOFTCAP>
 cudaError_t dispatch_tile(const Args& a) {
-  // 32 query rows and 32 keys a tile for the smallest bucket, where 64
-  // would leave half of every tile idle; otherwise 64 query rows, and keys
-  // by the head dimension: 16 at hd 128, so that three blocks' shared
-  // memory (69 KB each in float32) fits a SM, 64 below.
-  if (a.S <= 32) return launch<T, HD, 2, 32, SOFTCAP>(a);
+  // 32 query rows a tile for the smallest bucket, where 64 would leave half
+  // of every tile idle; otherwise 64 query rows.  Keys a tile by the head
+  // dimension: 16 at hd 128, so that three blocks' shared memory (69 KB
+  // each in float32) fits a SM, 64 below.  At hd 192 a lane holds 96
+  // output accumulators whatever the rows, so the key tile stays at 16 for
+  // both row counts (its score fragments are 24 floats in float32, three
+  // accumulators of two 8-key blocks): 99.5 KB of shared memory a block in
+  // float32 at 64 rows, 51.5 KB in bf16, two blocks a SM.
+  if (a.S <= 32) return launch<T, HD, 2, kSmallBlockK<HD>, SOFTCAP>(a);
   return launch<T, HD, 4, kLargeBlockK<HD>, SOFTCAP>(a);
 }
 
 template <typename T, bool SOFTCAP>
 cudaError_t dispatch_hd(int hd, const Args& a) {
   switch (hd) {
+    case 16:
+      return dispatch_tile<T, 16, SOFTCAP>(a);
     case 32:
       return dispatch_tile<T, 32, SOFTCAP>(a);
     case 64:
       return dispatch_tile<T, 64, SOFTCAP>(a);
     case 128:
       return dispatch_tile<T, 128, SOFTCAP>(a);
+    case 192:
+      return dispatch_tile<T, 192, SOFTCAP>(a);
     default:
       return cudaErrorInvalidValue;
   }
@@ -521,7 +535,7 @@ cudaError_t dispatch_softcap(int hd, const Args& a) {
 // the head dimension contiguous and the other strides given in elements;
 // every row must start on a 16-byte boundary (cp.async); lengths: (B,)
 // int32 or null (every row has S keys); out: (B, H, S, hd), contiguous.
-// hd must be 32, 64 or 128; softcap > 0 caps the scaled scores at
+// hd must be 16, 32, 64, 128 or 192; softcap > 0 caps the scaled scores at
 // ±softcap (tanh), 0 leaves them.  Launches on `stream` and returns
 // cudaGetLastError() (0 when the launch was accepted).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,

@@ -16,7 +16,7 @@ import torch
 
 from . import _build
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 192)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # (query, cache) storage types the kernel takes: one type for both, or
 # float32 queries over a bfloat16 cache (the models' decode step).
@@ -78,6 +78,7 @@ def decode_attention_cuda(
     scaled scores (tanh(s / cap) · cap) before the mask."""
     global launches
     check_inputs(q, k_cache, v_cache, valid_len, softcap)
+    _build.refuse_autograd("decode_attention", q, k_cache, v_cache)
     devices = {t.device for t in (q, k_cache, v_cache, valid_len)}
     if len(devices) != 1 or q.device.type != "cuda":
         raise ValueError(f"all inputs must lie on one CUDA device; got {devices}")

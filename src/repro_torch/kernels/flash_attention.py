@@ -16,7 +16,7 @@ import torch
 
 from . import _build
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 192)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0  # kernel launches since the last reset (ops.reset_launch_counts)
@@ -78,6 +78,7 @@ def flash_attention_cuda(
     ``softcap > 0`` caps the scaled scores (tanh(s / cap) · cap) before the masks."""
     global launches
     check_inputs(q, k, v, lengths, softcap)
+    _build.refuse_autograd("flash_attention", q, k, v)
     devices = {t.device for t in (q, k, v)} | ({lengths.device} if lengths is not None else set())
     if len(devices) != 1 or q.device.type != "cuda":
         raise ValueError(f"all inputs must lie on one CUDA device; got {devices}")

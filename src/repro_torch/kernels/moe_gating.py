@@ -51,6 +51,7 @@ def moe_gating_cuda(logits: torch.Tensor, top_k: int) -> tuple[torch.Tensor, tor
     int32), the gates renormalised over the k chosen experts."""
     global launches
     check_inputs(logits, top_k)
+    _build.refuse_autograd("moe_gating", logits)
     if logits.device.type != "cuda":
         raise ValueError(f"logits must lie on a CUDA device; got {logits.device}")
     t, e = logits.shape

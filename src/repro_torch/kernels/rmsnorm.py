@@ -48,6 +48,7 @@ def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6) -> 
     device → (T, d) in x's dtype."""
     global launches
     check_inputs(x, scale)
+    _build.refuse_autograd("rmsnorm", x, scale)
     if x.device.type != "cuda" or scale.device != x.device:
         raise ValueError(f"x and scale must lie on one CUDA device; got {x.device}, {scale.device}")
     t, d = x.shape

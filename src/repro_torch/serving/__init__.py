@@ -1,6 +1,7 @@
-"""Serving substrate of the port: the padded-batch batcher and the fault
-tier (byte-identical copies of the reference), and the real-execution
-engine that couples the ORLOJ scheduler to the PyTorch model."""
+"""Serving substrate of the port: workloads, traces, the padded-batch
+batcher, replica-pool dispatch, the fault tier and weights residency
+(byte-identical copies of the reference), and the real-execution engine
+that couples the ORLOJ scheduler to the PyTorch model."""
 
 from .faults import FaultPlan, FaultState, finish_probability
 

@@ -338,3 +338,123 @@ def test_kernel_wrappers_reject_mixed_devices(cuda_device):
         ops.decode_attention(q[:, :, 0].contiguous(), q, q, torch.zeros((1,), dtype=torch.int32))
     with pytest.raises(ValueError, match="one CUDA device"):
         ops.rmsnorm(q[0, 0], torch.ones(64))
+
+
+F32, BF16 = torch.float32, torch.bfloat16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,h,kv,s,hd,dtype,softcap,lengths",
+    [
+        (4, 4, 4, 8, 16, F32, 0.0, None),  # the engine-smoke toy's smallest bucket
+        (4, 4, 4, 24, 16, F32, 0.0, [24, 9, 1, 17]),  # a ragged bucket, lengths
+        (4, 4, 4, 32, 16, F32, 0.0, None),
+        (2, 4, 4, 16, 16, BF16, 0.0, None),
+        (4, 4, 4, 32, 16, BF16, 0.0, [32, 5, 0, 31]),
+        (2, 8, 2, 300, 16, F32, 0.0, None),  # 64-row tiles, GQA 4:1, ragged S
+        (2, 4, 4, 32, 16, F32, 2.0, None),  # softcap
+        (2, 8, 2, 256, 192, F32, 0.0, None),  # Nemotron-4-340B's head size
+        (2, 8, 2, 256, 192, BF16, 0.0, [256, 77]),
+        (2, 96, 8, 64, 192, F32, 0.0, None),  # Nemotron's GQA 12:1
+        (2, 4, 4, 24, 192, F32, 0.0, None),  # the smallest bucket's tile
+        (2, 4, 4, 32, 192, BF16, 0.0, None),
+        (2, 4, 2, 300, 192, F32, 0.0, [300, 131]),  # ragged S
+        (2, 8, 2, 256, 192, F32, 2.0, [256, 100]),  # softcap
+        (2, 8, 2, 256, 192, BF16, 2.0, None),
+    ],
+)
+def test_flash_kernel_head_dims_16_and_192(cuda_device, b, h, kv, s, hd, dtype, softcap, lengths):
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    q = _randn(g, (b, h, s, hd), cuda_device, dtype)
+    k = _randn(g, (b, kv, s, hd), cuda_device, dtype)
+    v = _randn(g, (b, kv, s, hd), cuda_device, dtype)
+    lens = None if lengths is None else torch.tensor(lengths, dtype=torch.int32, device=cuda_device)
+    before = fa_mod.launches
+    out = ops.flash_attention(q, k, v, lens, softcap=softcap)
+    torch.cuda.synchronize()
+    assert fa_mod.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape and torch.isfinite(out).all()
+    want = ref.flash_attention_ref(q, k, v, lengths=lens, softcap=softcap)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,h,kv,s,hd,valid,q_dtype,cache_dtype,softcap",
+    [
+        (4, 4, 4, 32, 16, None, F32, F32, 0.0),  # the toy's head size, g 1: half-warps per key
+        (3, 8, 2, 7, 16, [7, 0, 3], F32, F32, 0.0),  # g 4, S < one tile, odd key counts
+        (4, 4, 4, 300, 16, [300, 1, 0, 33], BF16, BF16, 0.0),
+        (8, 16, 2, 256, 16, [0, 256, 31, 33, 96, 97, 128, 200], F32, BF16, 0.0),  # g 8
+        (2, 8, 8, 1000, 16, [1000, 999], F32, F32, 0.0),  # many steps of 8 slots
+        (2, 4, 4, 64, 16, [64, 13], F32, F32, 2.0),  # softcap
+        (2, 96, 8, 256, 192, [256, 77], F32, F32, 0.0),  # Nemotron's group of 12: two passes
+        (2, 96, 8, 256, 192, [256, 0], F32, BF16, 0.0),
+        (2, 96, 8, 256, 192, [255, 31], BF16, BF16, 0.0),
+        (2, 8, 8, 1000, 192, [1000, 3], F32, F32, 0.0),  # g 1 at hd 192: 3 tile slots
+        (1, 8, 1, 512, 192, [20], F32, F32, 0.0),  # a cache shorter than one split
+        (8, 16, 8, 256, 192, [0, 256, 31, 33, 96, 97, 128, 200], F32, F32, 0.0),  # g 2
+        (2, 8, 2, 256, 192, [256, 40], F32, F32, 2.0),  # softcap
+        (2, 8, 2, 256, 192, [256, 40], F32, BF16, 2.0),
+    ],
+)
+def test_decode_kernel_head_dims_16_and_192(cuda_device, b, h, kv, s, hd, valid, q_dtype,
+                                             cache_dtype, softcap):
+    g = torch.Generator(device=cuda_device).manual_seed(10)
+    q = _randn(g, (b, h, hd), cuda_device, q_dtype)
+    kc = _randn(g, (b, kv, s, hd), cuda_device, cache_dtype)
+    vc = _randn(g, (b, kv, s, hd), cuda_device, cache_dtype)
+    if valid is None:
+        vl = torch.randint(1, s + 1, (b,), generator=g, device=cuda_device, dtype=torch.int32)
+    else:
+        vl = torch.tensor(valid, dtype=torch.int32, device=cuda_device)
+    before = dec_mod.launches
+    out = ops.decode_attention(q, kc, vc, vl, softcap=softcap)
+    torch.cuda.synchronize()
+    assert dec_mod.launches == before + 1
+    assert out.dtype == q_dtype and torch.isfinite(out).all()
+    want = ref.decode_attention_ref(q, kc, vc, vl, softcap=softcap)
+    tol = 2e-2 if cache_dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+    assert (out[vl == 0] == 0).all()
+
+
+def _kernel_call(op, dev):
+    """A call of one kernel's wrapper on small inputs, and the tensors it
+    reads (floating point: those that could require grad)."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    if op == "flash_attention":
+        q, k, v = (_randn(g, (1, 2, 16, 64), dev) for _ in range(3))
+        return (lambda: fa_mod.flash_attention_cuda(q, k, v)), (q, k, v), fa_mod
+    if op == "decode_attention":
+        q = _randn(g, (1, 2, 64), dev)
+        kc, vc = (_randn(g, (1, 2, 16, 64), dev) for _ in range(2))
+        vl = torch.tensor([16], dtype=torch.int32, device=dev)
+        return (lambda: dec_mod.decode_attention_cuda(q, kc, vc, vl)), (q, kc, vc), dec_mod
+    if op == "rmsnorm":
+        x, scale = _randn(g, (4, 64), dev), _randn(g, (64,), dev)
+        return (lambda: rms_mod.rmsnorm_cuda(x, scale)), (x, scale), rms_mod
+    logits = _randn(g, (4, 16), dev)
+    return (lambda: gating_mod.moe_gating_cuda(logits, 2)), (logits,), gating_mod
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["flash_attention", "decode_attention", "rmsnorm", "moe_gating"])
+def test_kernels_refuse_inputs_that_require_grad(cuda_device, op):
+    """No kernel has a backward yet: with grad mode on, an input that
+    requires grad makes the launch raise (each input in turn), where the
+    output would otherwise carry no graph.  Under no_grad it launches."""
+    call, inputs, mod = _kernel_call(op, cuda_device)
+    for t in inputs:
+        t.requires_grad_(True)
+        before = mod.launches
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+        assert mod.launches == before
+        with torch.no_grad():
+            call()
+        assert mod.launches == before + 1
+        t.requires_grad_(False)
+    call()  # grad mode on, nothing requires grad: the serving paths' case

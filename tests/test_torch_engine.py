@@ -280,13 +280,17 @@ def test_port_imports_no_jax_and_nothing_of_the_reference():
     covered = {p.relative_to(ROOT).as_posix() for p in _port_files()}
     assert {"src/repro_torch/models/moe.py", "src/repro_torch/kernels/rmsnorm.py",
             "src/repro_torch/kernels/moe_gating.py", "src/repro_torch/configs/arctic_480b.py",
-            "src/repro_torch/configs/glm4_9b.py", "scripts/gating_variants.py"} <= covered
+            "src/repro_torch/configs/glm4_9b.py", "scripts/gating_variants.py",
+            "src/repro_torch/eval/substrate.py", "src/repro_torch/eval/run.py",
+            "src/repro_torch/serving/cluster.py"} <= covered
 
 
 COPIES = [f"core/{m}.py" for m in (
     "__init__", "request", "distributions", "eventwheel", "requeststore", "hull",
     "priority", "profiler", "scheduler", "baselines", "eventloop", "tokensched",
-)] + ["serving/batcher.py", "serving/faults.py", "models/config.py"] + [
+)] + [f"serving/{m}.py" for m in ("batcher", "faults", "workload", "residency", "trace", "cluster")] + [
+    f"eval/{m}.py" for m in ("__init__", "spec", "workloads", "runner", "grid", "claims")
+] + ["models/config.py"] + [
     f"configs/{m}.py" for m in (
         "orloj_gpt", "arctic_480b", "glm4_9b", "dbrx_132b", "granite_34b", "olmo_1b",
         "nemotron_4_340b",

@@ -50,7 +50,8 @@ def _np(x) -> np.ndarray:
 # ------------------------------------------------------- flash attention
 @pytest.mark.parametrize(
     "b,h,kv,s,hd",
-    [(1, 4, 4, 128, 64), (2, 8, 2, 256, 64), (1, 4, 1, 128, 128), (2, 2, 2, 64, 32)],
+    [(1, 4, 4, 128, 64), (2, 8, 2, 256, 64), (1, 4, 1, 128, 128), (2, 2, 2, 64, 32),
+     (4, 4, 4, 24, 16), (2, 8, 2, 64, 192)],
 )
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_plain_matches_jax_ref(b, h, kv, s, hd, dtype):
@@ -63,7 +64,8 @@ def test_flash_plain_matches_jax_ref(b, h, kv, s, hd, dtype):
     np.testing.assert_allclose(_np(out), _np(jref.flash_attention_ref(jq, jk, jv)), **_tol(dtype))
 
 
-@pytest.mark.parametrize("b,h,kv,s,hd", [(2, 8, 2, 256, 64), (2, 2, 2, 64, 32)])
+@pytest.mark.parametrize("b,h,kv,s,hd", [(2, 8, 2, 256, 64), (2, 2, 2, 64, 32), (4, 4, 4, 32, 16),
+                                        (2, 4, 2, 128, 192)])
 def test_flash_plain_matches_pallas_interpreter(b, h, kv, s, hd):
     rng = np.random.default_rng(0)
     jq, tq = _pair(rng.normal(size=(b, h, s, hd)))
@@ -200,7 +202,8 @@ def test_one_tf32_pass_misses_the_float32_tolerance(b, h, kv, s, hd):
 
 
 # ------------------------------------------------------- decode attention
-@pytest.mark.parametrize("b,h,kv,s,hd", [(2, 8, 2, 512, 64), (1, 4, 4, 256, 128), (4, 8, 1, 1024, 64)])
+@pytest.mark.parametrize("b,h,kv,s,hd", [(2, 8, 2, 512, 64), (1, 4, 4, 256, 128), (4, 8, 1, 1024, 64),
+                                        (4, 4, 4, 32, 16), (2, 24, 2, 256, 192)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_plain_matches_jax_ref(b, h, kv, s, hd, dtype):
     rng = np.random.default_rng(4)
@@ -222,6 +225,20 @@ def test_decode_plain_matches_pallas_any_cache_length(s, block_k):
     jk, tk = _pair(rng.normal(size=(b, kv, s, hd)))
     jv, tv = _pair(rng.normal(size=(b, kv, s, hd)))
     valid = rng.integers(1, s + 1, size=(b,)).astype(np.int32)
+    out = ops.decode_attention(tq, tk, tv, torch.from_numpy(valid))
+    want = jops.decode_attention(jq, jk, jv, jnp.asarray(valid), use_pallas=True, block_k=block_k)
+    np.testing.assert_allclose(_np(out), _np(want), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("s,block_k,hd", [(32, 32, 16), (100, 64, 16), (130, 128, 192), (7, 256, 192)])
+def test_decode_plain_matches_pallas_head_dims_16_and_192(s, block_k, hd):
+    """The engine-smoke toy's head size and Nemotron-4-340B's."""
+    rng = np.random.default_rng(12)
+    b, h, kv = 2, 6, 2
+    jq, tq = _pair(rng.normal(size=(b, h, hd)))
+    jk, tk = _pair(rng.normal(size=(b, kv, s, hd)))
+    jv, tv = _pair(rng.normal(size=(b, kv, s, hd)))
+    valid = np.array([s, max(1, s // 3)], np.int32)
     out = ops.decode_attention(tq, tk, tv, torch.from_numpy(valid))
     want = jops.decode_attention(jq, jk, jv, jnp.asarray(valid), use_pallas=True, block_k=block_k)
     np.testing.assert_allclose(_np(out), _np(want), rtol=2e-5, atol=2e-5)
