@@ -17,7 +17,8 @@ Phases, each reported on its own lines; any failure exits non-zero:
    full caches, caches shorter than one split) (attention in float32 to
    1e-4: another order of summation, and the flash kernel's split-TF32
    products; RMSNorm and the gates in float32 to 1e-5: one row sum in
-   another order; bfloat16 to 2e-2: one bf16 rounding; the gating's expert
+   another order; bfloat16 to 2e-2: one bf16 rounding, or one bf16 step
+   of a bf16 output of magnitude 4 or more; the gating's expert
    ids exactly, also for ragged T, E of 3, 130 and 256, k == E, bf16,
    -inf logits and rows off 16 bytes); and the instantiations the models'
    decode path adds: decode groups of 16 and 48 query heads, float32
@@ -27,7 +28,12 @@ Phases, each reported on its own lines; any failure exits non-zero:
    (flash at S 8 and hd 128, decode over 8 slots and at B 1 over 256); and
    both kernels at head_dim 16 (the engine-smoke toy: B <= 4, 4 heads, S 8
    to 32) and 192 (Nemotron-4-340B: flash (8,96->8,256,192), decode at a
-   group of 12), in float32 and bf16, decode also over a bf16 cache;
+   group of 12), in float32 and bf16, decode also over a bf16 cache; and
+   the SSM and frontend models' shapes: flash at Hymba's groups of 5 with
+   its window of 1024 (S 256, 1100 and 2048), InternVL2's group of 7 (S 256
+   and 320) and MusicGen's bf16 heads, decode over Hymba's 1024-slot ring
+   (float32 and bf16 caches), at InternVL2's group of 7 and in bf16/bf16 at
+   MusicGen's group of 1, rmsnorm at Hymba's (2048, 1600);
 4. orloj_gpt: full width (12 layers, d 768, 12 heads, vocab 32000, weights
    from a seeded ``torch.Generator``) profiled for Eq. 3 and serving 100
    requests under the Orloj scheduler; the logits of a small batch held
@@ -50,7 +56,27 @@ Phases, each reported on its own lines; any failure exits non-zero:
 7. nemotron: Nemotron-4-340B at full width (d 18432, 96 query heads on 8 KV
    heads of 192, vocab 256000) cut to 1 layer (51.6 GB of float32 weights;
    GLM-4-9B's are freed first): decode ≡ forward at head_dim 192;
-8. engine-smoke: the paper's real-engine grid (``grid.engine_smoke()``:
+8. hymba: Hymba-1.5B at full width and depth (32 layers, d 1600, 25 query
+   heads on 5 KV heads of 64, Mamba heads of state 16, window 1024; 1.40 G
+   float32 parameters): serve under Orloj with rmsnorm and flash launched,
+   the token path (decode at a group of 5), decode ≡ forward over 16
+   tokens, the (8, 256) prefill's peak memory and device time by class
+   beside one layer's Mamba branch and its chunk scan alone; then 2 layers
+   at full width: a forward of 1100 tokens against 1100 decode steps across
+   the 1024-slot ring's wrap;
+9. xlstm: xLSTM-1.3B at full width and depth (48 blocks, d 2048, 4 heads of
+   512, one sLSTM block in 8), which launches none of the four kernels:
+   decode ≡ forward, the (8, 256) forward's seconds, device operations and
+   idle share, and one sLSTM cell's 256 sequential steps;
+10. internvl2: InternVL2-1B at full width and depth (24 layers, d 896, 14
+   query heads on 2 KV heads): logits over 256 patch embeddings and 64
+   tokens, decode ≡ forward (flash and decode at a group of 7), and one
+   layer with a 512-word vocabulary against the CPU, image prefix included;
+11. musicgen: MusicGen-large at full width and depth (48 layers, d 2048, 32
+   heads), float32 weights computing in bfloat16 from the audio frames:
+   logits over 256 frames, decode ≡ forward over a bfloat16 cache (to 5e-2
+   of the largest logit);
+12. engine-smoke: the paper's real-engine grid (``grid.engine_smoke()``:
    bimodal, ORLOJ against Nexus at SLO 1.5 and 5) through the port's
    ``runner.run_specs`` on the card, on the toy ``orloj_gpt`` (flash at
    head_dim 16) and then on ``engine:orloj_gpt_paper`` (full width, flash
@@ -59,7 +85,7 @@ Phases, each reported on its own lines; any failure exits non-zero:
    window; the artifact under ``build/``, the drift report per model, and
    every flash call of one re-served cell of each model held against the
    plain version;
-9. one line per attention shape with the kernels' ratios to SDPA, to
+13. one line per kernel and shape with the kernel's ratios to SDPA, to
    their plain versions and to their bounds, then the ``kernels`` line
    (JSON): launches on the main paths, kernel, plain and library times,
    and the least time the card could take (for flash also on the tensor
@@ -69,17 +95,20 @@ Phases, each reported on its own lines; any failure exits non-zero:
 
 Phases 4 and 5 also run decode ≡ forward: a prompt of a few tokens for 2
 rows through ``Model.logits`` and the same tokens one by one through
-``init_cache(dtype=float32)`` and ``decode_step``, held to LOGITS_TOL;
-phases 6 and 7 run it for glm4 and nemotron.  Every kernel call of those runs is recorded and
-held against its plain version on the call's own inputs, at the phase 3
-tolerances (one line per kernel and shape; ``path_calls_held`` and
-``path_max_abs_err`` in the ``kernels`` line).
+``init_cache`` (of the logits' type: float32, bfloat16 for MusicGen) and
+``decode_step``, held to LOGITS_TOL; phases 6 to 11 run it for their
+models.  Every kernel call of those runs, and of the forwards of phases 10
+and 11, is held against its plain version on the call's own inputs as it
+returns, at the phase 3 tolerances (one line per kernel and shape;
+``path_calls_held`` and ``path_max_abs_err`` in the ``kernels`` line).
 
-The launch counters are set to 0 just before each serve, token and
-decode ≡ forward path and each engine-smoke cell, and read just after; the
-line's launches are their sums.  Every path checks that no parameter
-requires grad (the kernels refuse such inputs under grad mode).  Comparisons and timings run outside those windows.  Each phase
-prints its seconds.  The last line is ``{"ok": true, "device": {...}}``.
+The launch counters are set to 0 just before each serve, token, forward
+and decode ≡ forward path and each engine-smoke cell, and read just after;
+the line's launches are their sums.  Every path checks that no parameter
+requires grad (the kernels refuse such inputs under grad mode).  The
+holds of the paths' kernel calls run inside the windows and launch no
+kernel; the card-vs-CPU comparisons and the timings run outside them.
+Each phase prints its seconds.  The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -109,6 +138,7 @@ BF16_FLOP_PER_S = 989e12
 F32_TOL, BF16_TOL = 1e-4, 2e-2
 ROW_TOL = 1e-5  # RMSNorm and the gates in float32: one row sum in another order
 LOGITS_TOL = 1e-3  # card vs CPU, float32 layers and a d-wide head
+BF16_MODEL_TOL = 5e-2  # a bfloat16 model, relative to its largest logit (test_arch_smoke's bound)
 N_REQUESTS, N_TOKEN_REQUESTS = 100, 32
 ARCTIC_LAYERS = 1  # 56.3 GB of float32 weights per layer: one fits the 80 GB card
 PROMPT = 8  # tokens of each row in decode ≡ forward
@@ -252,6 +282,25 @@ def _bound(nbytes: float, flops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _attention_ok(out, want, bf16_input: bool) -> tuple[float, bool]:
+    """The max abs error of an attention kernel's output against its plain
+    version's, and whether it is within tolerance: F32_TOL; over a bf16
+    input BF16_TOL (one bf16 rounding), or, where the output is bf16 and of
+    magnitude 4 or more, one bf16 step of the value (0.03125 in [4, 8)):
+    two roundings of nearly equal float32 values may lie a step apart."""
+    import torch
+
+    diff = (out.float() - want.float()).abs()
+    err = diff.max().item()
+    if not bf16_input:
+        return err, math.isfinite(err) and err <= F32_TOL
+    bound = torch.full_like(diff, BF16_TOL)
+    if out.dtype == torch.bfloat16:
+        step = torch.exp2(torch.floor(torch.log2(want.float().abs().clamp_min(1e-30))) - 7)
+        bound = torch.maximum(bound, step)
+    return err, math.isfinite(err) and bool((diff <= bound).all())
+
+
 # ------------------------------------------------------------ phases
 def phase_card() -> str:
     import torch
@@ -369,6 +418,14 @@ def phase_kernels_vs_plain() -> dict[str, float]:
         ("hd 192 ragged S=300 lengths [300,131] f32", 2, 8, 2, 300, 192, f32, [300, 131], 0, 0.0),
         ("hd 192 smallest bucket (4,4,32,192) bf16", 4, 4, 4, 32, 192, bf16, None, 0, 0.0),
         ("softcap 2 hd 192 (2,8->2,256,192) f32", 2, 8, 2, 256, 192, f32, [256, 100], 0, 2.0),
+        # the zoo's SSM and frontend models: Hymba (group 5, window 1024), InternVL2
+        # (group 7), MusicGen (bf16, MHA)
+        ("hymba (8,25->5,256,64) f32", 8, 25, 5, 256, 64, f32, None, 1024, 0.0),
+        ("hymba window 1024 (1,25->5,2048,64) f32", 1, 25, 5, 2048, 64, f32, None, 1024, 0.0),
+        ("hymba ring wrap (1,25->5,1100,64) lengths [1100] f32", 1, 25, 5, 1100, 64, f32, [1100], 1024, 0.0),
+        ("internvl2 (8,14->2,256,64) f32", 8, 14, 2, 256, 64, f32, None, 0, 0.0),
+        ("internvl2 prefix + tokens (2,14->2,320,64) f32", 2, 14, 2, 320, 64, f32, None, 0, 0.0),
+        ("musicgen (8,32,256,64) bf16", 8, 32, 32, 256, 64, bf16, None, 0, 0.0),
     ]
     for name, b, h, kv, s, hd, dt, lens, window, cap in flash_cases:
         q = _randn(gen, (b, h, s, hd), dt)
@@ -378,9 +435,9 @@ def phase_kernels_vs_plain() -> dict[str, float]:
         out = fa.flash_attention_cuda(q, k, v, lt, causal=True, window=window, softcap=cap)
         want = ref.flash_attention_ref(q, k, v, lengths=lt, causal=True, window=window, softcap=cap)
         torch.cuda.synchronize()
-        err = (out.float() - want.float()).abs().max().item()
+        err, ok = _attention_ok(out, want, dt == bf16)
         tol = BF16_TOL if dt == bf16 else F32_TOL
-        ok = math.isfinite(err) and err <= tol and out.dtype == dt
+        ok = ok and out.dtype == dt
         log(f"kernel vs plain: flash_attention {name}: max_abs_err {err:.3e} (tol {tol}) {'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"flash_attention {name}")
@@ -394,6 +451,10 @@ def phase_kernels_vs_plain() -> dict[str, float]:
             main_err["toy_flash_attention"] = err
         if name.startswith("nemotron (8,96->8,256,192) f32"):
             main_err["nemotron_flash_attention"] = err
+        for model, prefix in (("hymba", "hymba (8"), ("hymba_window", "hymba window 1024"),
+                              ("internvl2", "internvl2 (8"), ("musicgen", "musicgen (8")):
+            if name.startswith(prefix):
+                main_err[f"{model}_flash_attention"] = err
 
     decode_cases = [
         ("main path (8,12,256,64) f32", 8, 12, 12, 256, 64, None),
@@ -433,6 +494,12 @@ def phase_kernels_vs_plain() -> dict[str, float]:
         ("nemotron g 12 bf16 (2,96->8,256,192) valid_len [255,31]", 2, 96, 8, 256, 192, [255, 31]),
         ("hd 192 g 1 (2,8->8,1000,192) valid_len [1000,3] f32", 2, 8, 8, 1000, 192, [1000, 3]),
         ("softcap 2 hd 192 (2,8->2,256,192) valid_len [256,40] f32", 2, 8, 2, 256, 192, [256, 40]),
+        ("hymba g 5: f32 q, bf16 cache: 1024-slot ring (8,25->5,1024,64)", 8, 25, 5, 1024, 64, [1024] * 8),
+        ("hymba g 5 (8,25->5,1024,64) valid_len [1024,0,1,1023,512,64,65,1000] f32", 8, 25, 5, 1024, 64,
+         [1024, 0, 1, 1023, 512, 64, 65, 1000]),
+        ("internvl2 g 7 (8,14->2,256,64) f32", 8, 14, 2, 256, 64, None),
+        ("internvl2 g 7: f32 q, bf16 cache (8,14->2,256,64)", 8, 14, 2, 256, 64, [256, 0, 5, 64, 250, 129, 1, 256]),
+        ("musicgen g 1 bf16 (8,32->32,256,64)", 8, 32, 32, 256, 64, None),
     ]
     for name, b, h, kv, s, hd, valid in decode_cases:
         # The name says the types: "f32 q, bf16 cache", else one type (bf16
@@ -450,9 +517,9 @@ def phase_kernels_vs_plain() -> dict[str, float]:
         out = dec.decode_attention_cuda(q, kc, vc, vl, softcap=cap)
         want = ref.decode_attention_ref(q, kc, vc, vl, softcap=cap)
         torch.cuda.synchronize()
-        err = (out.float() - want.float()).abs().max().item()
+        err, ok = _attention_ok(out, want, cdt == bf16)
         tol = BF16_TOL if cdt == bf16 else F32_TOL
-        ok = math.isfinite(err) and err <= tol and out.dtype == dt and bool((out[vl == 0] == 0).all())
+        ok = ok and out.dtype == dt and bool((out[vl == 0] == 0).all())
         log(f"kernel vs plain: decode_attention {name}: max_abs_err {err:.3e} (tol {tol}) {'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"decode_attention {name}")
@@ -468,6 +535,9 @@ def phase_kernels_vs_plain() -> dict[str, float]:
             main_err["toy_decode_attention"] = err
         if name.startswith("nemotron g 12 (8"):
             main_err["nemotron_decode_attention"] = err
+        for model in ("hymba", "internvl2", "musicgen"):
+            if name.startswith(f"{model} g ") and ("bf16" in name) == (model != "internvl2"):
+                main_err[f"{model}_decode_attention"] = err
 
     rms_cases = [
         ("main path (2048,7168) f32", 2048, 7168, f32),
@@ -475,6 +545,7 @@ def phase_kernels_vs_plain() -> dict[str, float]:
         ("ragged T=300 (300,7168) f32", 300, 7168, f32),
         ("(64,896) f32", 64, 896, f32),
         ("(7,1024) f32", 7, 1024, f32),
+        ("hymba (2048,1600) f32", 2048, 1600, f32),
     ]
     for name, t, d, dt in rms_cases:
         x = _randn(gen, (t, d), dt) * 3
@@ -492,6 +563,8 @@ def phase_kernels_vs_plain() -> dict[str, float]:
             failures.append(f"rmsnorm {name}")
         if name.startswith("main path"):
             main_err["rmsnorm"] = err
+        if name.startswith("hymba"):
+            main_err["hymba_rmsnorm"] = err
 
     tie = torch.zeros((6, 16), device="cuda")
     tie[1] = 3.0  # a row of equal logits
@@ -597,18 +670,36 @@ def _routing_log():
 PATH_HELD: dict[str, tuple[int, float]] = {}
 
 
-def _clone(a):
-    import torch
+def _plain(name: str, args, kw):
+    """The plain version of a kernel call made through ``ops``."""
+    from repro_torch.kernels import ref
 
-    return a.clone() if isinstance(a, torch.Tensor) else a
+    if name == "flash_attention":
+        q, k, v, *rest = args
+        lengths = rest[0] if rest else kw.pop("lengths", None)
+        return ref.flash_attention_ref(q, k, v, lengths=lengths, **kw)
+    if name == "decode_attention":
+        return ref.decode_attention_ref(*args, **kw)
+    if name == "rmsnorm":
+        x, scale = args
+        return ref.rmsnorm_ref(x.reshape(-1, x.shape[-1]), scale, kw.get("eps", 1e-6)).reshape(x.shape)
+    return ref.moe_gating_ref(*args, **kw)
 
 
 @contextlib.contextmanager
 def _kernel_log():
-    """Records every call of the four kernels through ``repro_torch.kernels.ops``
-    (its inputs and its output, copied: the cache changes in place) for
-    :func:`_hold_path_calls`.  Only the wrappers' routes are wrapped: the
-    launches and their counts are the path's own."""
+    """Holds every call of the four kernels through ``repro_torch.kernels.ops``
+    against its plain version on the same inputs as the call returns (a
+    decode cache is written before the call and again only by the next
+    step), and records (name, shapes, types, max_abs_err, ok, and for bf16
+    attention both errors against the plain version in float32) for
+    :func:`_hold_path_calls`: attention as :func:`_attention_ok`; RMSNorm
+    to ROW_TOL relative and absolute; the gating's ids exactly and its
+    gates to ROW_TOL.  Only the wrappers' routes are
+    wrapped: the launches and their counts are the path's own; the plain
+    versions launch none of the kernels."""
+    import torch
+
     from repro_torch.kernels import ops
 
     seen: list = []
@@ -617,10 +708,26 @@ def _kernel_log():
 
     def recorder(name, fn):
         def call(*args, **kw):
-            inputs = ([_clone(a) for a in args], {k: _clone(v) for k, v in kw.items()})
             out = fn(*args, **kw)
-            seen.append((name, inputs, tuple(_clone(o) for o in out) if isinstance(out, tuple)
-                         else _clone(out)))
+            want = _plain(name, args, dict(kw))
+            shape = ",".join(str(tuple(a.shape)) for a in args if isinstance(a, torch.Tensor) and a.dim() > 1)
+            dtypes = "/".join(sorted({str(a.dtype)[6:] for a in args if isinstance(a, torch.Tensor)
+                                      and a.is_floating_point()}))
+            vs_f32 = None
+            if name == "moe_gating":
+                err = (out[0] - want[0]).abs().max().item()
+                ok = torch.equal(out[1], want[1]) and err <= ROW_TOL
+            elif name == "rmsnorm":
+                err = (out.float() - want.float()).abs().max().item()
+                ok = bool(torch.isclose(out.float(), want.float(), rtol=ROW_TOL, atol=ROW_TOL).all())
+            else:
+                err, ok = _attention_ok(out, want, "bfloat16" in dtypes)
+                if "bfloat16" in dtypes:  # both against the plain version in float32 on the same values
+                    exact = _plain(name, [a.float() if isinstance(a, torch.Tensor) and a.is_floating_point()
+                                          else a for a in args], dict(kw))
+                    vs_f32 = ((out.float() - exact).abs().max().item(),
+                              (want.float() - exact).abs().max().item())
+            seen.append((name, shape, dtypes, err, ok, vs_f32))
             return out
         return call
 
@@ -634,52 +741,26 @@ def _kernel_log():
 
 
 def _hold_path_calls(calls, label: str) -> None:
-    """Each recorded kernel call's output against the plain version on the
-    same inputs (attention to F32_TOL, or BF16_TOL over a bf16 input;
-    RMSNorm to ROW_TOL relative and absolute; the gating's ids exactly and
-    its gates to ROW_TOL), one line per kernel and shape."""
-    import torch
-
-    from repro_torch.kernels import ref
-
-    def plain(name, args, kw):
-        if name == "flash_attention":
-            q, k, v, *rest = args
-            lengths = rest[0] if rest else kw.pop("lengths", None)
-            return ref.flash_attention_ref(q, k, v, lengths=lengths, **kw)
-        if name == "decode_attention":
-            return ref.decode_attention_ref(*args, **kw)
-        if name == "rmsnorm":
-            x, scale = args
-            return ref.rmsnorm_ref(x.reshape(-1, x.shape[-1]), scale, kw.get("eps", 1e-6)).reshape(x.shape)
-        return ref.moe_gating_ref(*args, **kw)
-
-    groups: dict[tuple, list[float]] = {}
+    """The recorded kernel calls' errors, one line per kernel and shape;
+    fails if any call disagreed with its plain version."""
+    groups: dict[tuple, list] = {}
     failures = []
-    for name, (args, kw), out in calls:
-        want = plain(name, args, dict(kw))
-        shape = ",".join(str(tuple(a.shape)) for a in args if isinstance(a, torch.Tensor) and a.dim() > 1)
-        dtypes = "/".join(sorted({str(a.dtype)[6:] for a in args if isinstance(a, torch.Tensor)
-                                  and a.is_floating_point()}))
-        if name == "moe_gating":
-            err = (out[0] - want[0]).abs().max().item()
-            ok = torch.equal(out[1], want[1]) and err <= ROW_TOL
-        else:
-            err = (out.float() - want.float()).abs().max().item()
-            if name == "rmsnorm":
-                ok = bool(torch.isclose(out.float(), want.float(), rtol=ROW_TOL, atol=ROW_TOL).all())
-            else:
-                ok = math.isfinite(err) and err <= (BF16_TOL if "bfloat16" in dtypes else F32_TOL)
-        groups.setdefault((name, shape, dtypes), []).append(err)
+    for name, shape, dtypes, err, ok, vs_f32 in calls:
+        groups.setdefault((name, shape, dtypes), []).append((err, vs_f32))
         if not ok:
             failures.append(f"{name} {shape} {dtypes}")
-    for (name, shape, dtypes), errs in groups.items():
+    for (name, shape, dtypes), rows in groups.items():
+        errs = [e for e, _ in rows]
         n, worst = PATH_HELD.get(name, (0, 0.0))
         PATH_HELD[name] = (n + len(errs), max(worst, max(errs)))
+        f32 = [v for _, v in rows if v is not None]
+        extra = (f"; against the plain version in float32 on the same values: kernel "
+                 f"{max(k for k, _ in f32):.3e}, bf16 plain version {max(p for _, p in f32):.3e}") if f32 else ""
         log(f"{label} kernels vs plain on the path's own inputs: {name} {shape} {dtypes}: {len(errs)} calls, "
-            f"max_abs_err {max(errs):.3e}")
+            f"max_abs_err {max(errs):.3e}{extra}")
     if failures:
-        raise SystemExit(f"{label}: kernel calls of the path disagree with their plain versions: {failures}")
+        raise SystemExit(f"{label}: kernel calls of the path disagree with their plain versions: "
+                         f"{sorted(set(failures))}")
 
 
 def phase_card_vs_cpu(model, params, label: str) -> None:
@@ -692,13 +773,18 @@ def phase_card_vs_cpu(model, params, label: str) -> None:
     from repro_torch.models import Model
 
     cfg = model.cfg
-    tokens = torch.from_numpy(np.random.default_rng(0).integers(1, 1000, size=(2, 32)))
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(1, 1000, size=(2, 32)))}
+    if cfg.frontend == "vision":  # a full image prefix before the tokens
+        batch["frontend_embeds"] = torch.from_numpy(
+            rng.normal(size=(2, cfg.n_frontend_tokens, 1024)).astype(np.float32))
+    seq = 32 + (cfg.n_frontend_tokens if cfg.frontend == "vision" else 0)
     with torch.no_grad(), _routing_log() as card_routes:
-        got = model.logits(params, {"tokens": tokens.to(model.device)})
+        got = model.logits(params, {k: v.to(model.device) for k, v in batch.items()})
     with torch.no_grad(), _routing_log() as cpu_routes:
-        want = Model(cfg, device="cpu").logits(_to_cpu(params), {"tokens": tokens})
+        want = Model(cfg, device="cpu").logits(_to_cpu(params), batch)
     err = (got.cpu() - want).abs().max().item()
-    ok = got.shape == (2, tokens.shape[1], cfg.vocab_size) and bool(torch.isfinite(got).all())
+    ok = got.shape == (2, seq, cfg.vocab_size) and bool(torch.isfinite(got).all())
     log(f"{label}: logits {tuple(got.shape)} finite={ok}, max |logit| {want.abs().max().item():.3f}; "
         f"card vs CPU max_abs_err {err:.3e} (tol {LOGITS_TOL})")
     if not ok or not err <= LOGITS_TOL:
@@ -766,9 +852,10 @@ def phase_where_time_goes(engine, label: str) -> None:
         _profile(fn, label, name)
 
 
-def _profile(fn, label: str, name: str) -> None:
+def _profile(fn, label: str, name: str) -> list:
     """Wall time, device busy time, idle share and the top operations by
-    device time of one call of ``fn``, from torch.profiler."""
+    device time of one call of ``fn``, from torch.profiler; returns the
+    device operations (``key_averages`` rows)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -796,16 +883,45 @@ def _profile(fn, label: str, name: str) -> None:
         log(f"{label} where the time goes: {name}: moe_gating kernel's own device time "
             f"{sum(e.device_time_total for e in gating) / 1e3:.6f} ms over "
             f"{sum(e.count for e in gating)} launches")
+    return events
 
 
-def phase_decode_matches_forward(model, params, label: str) -> dict[str, int]:
-    """Decode ≡ forward on the card: PROMPT tokens of 2 rows through
-    ``Model.logits``, and the same tokens one at a time through a float32
-    cache and ``decode_step``, held to LOGITS_TOL.  An MoE forward routes
-    2·PROMPT tokens against a capacity C, a step 2 against its own: the
-    forward's dropped assignments are printed, and a row is held only
-    before its first dropped one (attention carries a drop to every later
-    position)."""
+def _step_inputs(cfg, rng, rows: int, steps: int, device):
+    """What ``decode_step`` takes for ``steps`` positions of ``rows`` rows:
+    token ids, or an audio model's (rows, steps, 512) frame embeddings."""
+    import numpy as np
+    import torch
+
+    if cfg.frontend == "audio":
+        return torch.from_numpy(rng.normal(size=(rows, steps, 512)).astype(np.float32)).to(device)
+    return torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(rows, steps))).to(device)
+
+
+def _forward_batch(cfg, inputs) -> dict:
+    """The forward's batch over the same positions: audio reads the frames; a
+    vision model takes an empty image prefix (a decode step reads tokens)."""
+    import torch
+
+    if cfg.frontend == "audio":
+        return {"frontend_embeds": inputs}
+    if cfg.frontend == "vision":
+        return {"frontend_embeds": torch.zeros((inputs.shape[0], 0, 1024), device=inputs.device),
+                "tokens": inputs}
+    return {"tokens": inputs}
+
+
+def phase_decode_matches_forward(model, params, label: str, *, prompt: int = PROMPT, rows: int = 2,
+                                 must_launch=("decode_attention", "flash_attention")) -> dict[str, int]:
+    """Decode ≡ forward on the card: ``prompt`` positions of ``rows`` rows
+    through ``Model.logits``, and the same inputs one at a time through
+    ``decode_step`` over a cache of the type the stack computes in (the
+    logits': float32, or bfloat16 for MusicGen's frames), held to
+    LOGITS_TOL, or in bfloat16 to BF16_MODEL_TOL times the largest logit
+    (at least 1).  An MoE forward
+    routes rows·prompt tokens against a capacity C, a step ``rows`` against
+    its own: the forward's dropped assignments are printed, and a row is
+    held only before its first dropped one (attention carries a drop to
+    every later position)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -814,44 +930,56 @@ def phase_decode_matches_forward(model, params, label: str) -> dict[str, int]:
     from repro_torch.models.moe import capacity
 
     cfg = model.cfg
-    rng = np.random.default_rng(1)
-    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(2, PROMPT))).to(model.device)
+    inputs = _step_inputs(cfg, np.random.default_rng(1), rows, prompt, model.device)
     ops.reset_launch_counts()
     with torch.no_grad(), _kernel_log() as calls, _routing_log() as routes:
-        full = model.logits(params, {"tokens": tokens})
+        full = model.logits(params, _forward_batch(cfg, inputs))
         n_forward = len(routes)
-        cache = model.init_cache(2, PROMPT, dtype=torch.float32)
-        steps = [model.decode_step(params, tokens[:, i : i + 1], cache, i)[0][:, 0]
-                 for i in range(PROMPT)]
+        # The cache takes the type the stack computes in: the logits'.
+        bf16 = full.dtype == torch.bfloat16
+        cache_dtype = full.dtype
+        cache = model.init_cache(rows, prompt, dtype=cache_dtype)
+        steps = [model.decode_step(params, inputs[:, i : i + 1], cache, i)[0][:, 0]
+                 for i in range(prompt)]
         dec = torch.stack(steps, 1)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
-    held = torch.ones((2, PROMPT), dtype=torch.bool)
+    held = torch.ones((rows, prompt), dtype=torch.bool)
     dropped = 0
     for _, _, ids in routes[:n_forward]:
         flat = ids.reshape(-1).long().cpu()
         onehot = F.one_hot(flat, cfg.n_experts)
         pos_in_e = (onehot.cumsum(0) - onehot).gather(1, flat[:, None])[:, 0]
-        drop = pos_in_e >= capacity(2 * PROMPT, cfg.top_k, cfg.n_experts, cfg.capacity_factor)
+        drop = pos_in_e >= capacity(rows * prompt, cfg.top_k, cfg.n_experts, cfg.capacity_factor)
         dropped += int(drop.sum())
-        held &= drop.reshape(2, PROMPT, cfg.top_k).any(-1).cumsum(1) == 0
+        held &= drop.reshape(rows, prompt, cfg.top_k).any(-1).cumsum(1) == 0
     if not held.any():
         raise SystemExit(f"{label} decode ≡ forward: every position follows a dropped assignment")
-    err = (dec - full).abs()[held.to(dec.device)].max().item()
-    ok = dec.shape == full.shape and bool(torch.isfinite(dec).all()) and err <= LOGITS_TOL
-    moe = (f"; the forward dropped {dropped} of {2 * PROMPT * cfg.top_k * n_forward} assignments, "
+    err = (dec.float() - full.float()).abs()[held.to(dec.device)].max().item()
+    top = full.float().abs().max().item()
+    tol = BF16_MODEL_TOL * max(1.0, top) if bf16 else LOGITS_TOL
+    ok = dec.shape == full.shape and bool(torch.isfinite(dec).all()) and err <= tol
+    moe = (f"; the forward dropped {dropped} of {rows * prompt * cfg.top_k * n_forward} assignments, "
            f"{int(held.sum())} of {held.numel()} positions held") if cfg.is_moe else ""
-    log(f"{label} decode ≡ forward: {PROMPT} tokens × 2 rows, {cfg.n_layers} layers, float32 cache: "
-        f"max |logit| {full.abs().max().item():.3f}, max_abs_err {err:.3e} (tol {LOGITS_TOL}){moe}; "
-        f"launches={counts} {'ok' if ok else 'FAIL'}")
+    log(f"{label} decode ≡ forward: {prompt} positions × {rows} rows, {cfg.n_layers} layers, "
+        f"{str(cache_dtype)[6:]} compute and cache ({_cache_slots(cache)} slots): "
+        f"max |logit| {top:.3f}, max_abs_err {err:.3e} (tol {tol:.3e}){moe}; launches={counts} "
+        f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit(f"{label}: token-by-token decoding disagrees with the forward")
-    for name in ("decode_attention", "flash_attention"):
+    for name in must_launch:
         if counts[name] <= 0:
             raise SystemExit(f"{label} decode ≡ forward: no {name} kernel was launched")
-    with torch.no_grad():
-        _hold_path_calls(calls, f"{label} decode ≡ forward")
+    if not must_launch and any(counts.values()):
+        raise SystemExit(f"{label} decode ≡ forward: a kernel was launched on a path that has none: {counts}")
+    _hold_path_calls(calls, f"{label} decode ≡ forward")
     return counts
+
+
+def _cache_slots(cache) -> str:
+    """The KV slots of the first attention layer's cache, or "no KV"."""
+    kv = next((c["kv"]["k"].shape[2] for c in cache if "kv" in c), None)
+    return "no KV" if kv is None else str(kv)
 
 
 def _nbytes(tree) -> int:
@@ -961,49 +1089,80 @@ def _attention_entries(gen, b, h, kv, s, hd) -> tuple[dict, dict]:
     """Times and bounds of both attention kernels at one shape, float32; the
     decode kernel also over a bfloat16 cache (``bf16_cache_*``)."""
     import torch
+
+    flash = _flash_entry(gen, b, h, kv, s, hd, torch.float32)
+    flash["tc_roofline_share"] = flash["tc_bound_ms"] / flash["ms"]
+    decode = _decode_entry(gen, b, h, kv, s, hd, torch.float32, torch.float32)
+    over_bf16 = _decode_entry(gen, b, h, kv, s, hd, torch.float32, torch.bfloat16)
+    for key in ("ms", "bound_ms", "bound_by"):
+        decode[f"bf16_cache_{key}"] = over_bf16[key]
+    return flash, decode
+
+
+def _flash_entry(gen, b, h, kv, s, hd, dtype, window: int = 0) -> dict:
+    """Flash's time, plain and SDPA times and bounds at one causal shape,
+    with a sliding window when ``window > 0`` (the bounds count only the
+    (query, key) pairs the window keeps; SDPA takes the same mask).
+    ``bound_ms`` counts the operations at the peak rate of the inputs'
+    type (float32: SIMT; bf16: the tensor cores), ``tc_bound_ms`` on the
+    tensor cores."""
+    import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
-    q = _randn(gen, (b, h, s, hd), torch.float32)
-    k, v = (_randn(gen, (b, kv, s, hd), torch.float32) for _ in range(2))
-    # SDPA's GQA needs the KV heads repeated; it is the yardstick only.
+    q = _randn(gen, (b, h, s, hd), dtype)
+    k, v = (_randn(gen, (b, kv, s, hd), dtype) for _ in range(2))
     kr, vr = (t.repeat_interleave(h // kv, dim=1) for t in (k, v))
-    f_bound, f_by = flash_bound(q, k, None, True, 0)
-    tc_bound, tc_by = flash_tc_bound(q, k, None, True, 0)
-    flash = {
-        "ms": time_ms(lambda: fa.flash_attention_cuda(q, k, v)),
-        "plain_ms": time_ms(lambda: ref.flash_attention_ref(q, k, v)),
-        "bound_ms": f_bound, "bound_by": f_by,
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q, kr, vr, is_causal=True)),
-        "tc_bound_ms": tc_bound, "tc_bound_by": tc_by,
+    mask = None
+    if window > 0:
+        i, j = torch.arange(s, device="cuda")[:, None], torch.arange(s, device="cuda")[None, :]
+        mask = (j <= i) & (j > i - window)
+    tc_bound, tc_by = flash_tc_bound(q, k, None, True, window)
+    # The peak rate of the inputs' type: float32 outside the tensor cores, bf16 on them.
+    bound, by = (tc_bound, tc_by) if dtype == torch.bfloat16 else flash_bound(q, k, None, True, window)
+    e = {
+        "ms": time_ms(lambda: fa.flash_attention_cuda(q, k, v, window=window)),
+        "plain_ms": time_ms(lambda: ref.flash_attention_ref(q, k, v, window=window)),
+        "bound_ms": bound, "bound_by": by,
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q, kr, vr, attn_mask=mask,
+                                                                    is_causal=mask is None)),
+        "tc_bound_ms": tc_bound, "tc_bound_by": tc_by, "window": window,
     }
-    flash["tc_roofline_share"] = tc_bound / flash["ms"]
-    qd = _randn(gen, (b, h, hd), torch.float32)
-    vl = torch.full((b,), s, dtype=torch.int32, device="cuda")  # the step at full capacity
-    mask = (torch.arange(s, device="cuda")[None] < vl[:, None])[:, None, None, :]
-    d_bound, d_by = decode_bound(qd, k, vl)
-    decode = {
-        "ms": time_ms(lambda: dec.decode_attention_cuda(qd, k, v, vl)),
-        "plain_ms": time_ms(lambda: ref.decode_attention_ref(qd, k, v, vl)),
-        "bound_ms": d_bound, "bound_by": d_by,
-        "library_ms": time_ms(
-            lambda: F.scaled_dot_product_attention(qd[:, :, None], kr, vr, attn_mask=mask)
-        ),
+    log(f"flash ({b},{h}->{kv},{s},{hd}) {str(dtype)[6:]} window {window}, ratios in this call: "
+        f"/SDPA {e['ms'] / e['library_ms']:.3f}, /plain {e['ms'] / e['plain_ms']:.3f}, "
+        f"/tc_bound {e['ms'] / tc_bound:.3f} (tc_bound {tc_bound:.6f} ms, {tc_by}), "
+        f"/bound {e['ms'] / bound:.3f} (bound {bound:.6f} ms, {by}); {e['ms']:.6f} ms")
+    return e
+
+
+def _decode_entry(gen, b, h, kv, s, hd, q_dtype, cache_dtype) -> dict:
+    """Decode's time, plain and SDPA (given the valid-slot mask) times and
+    bound at one shape, every slot of the cache valid (the step at full
+    capacity)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import ref
+
+    q = _randn(gen, (b, h, hd), q_dtype)
+    k, v = (_randn(gen, (b, kv, s, hd), cache_dtype) for _ in range(2))
+    kr, vr = (t.to(q_dtype).repeat_interleave(h // kv, dim=1) for t in (k, v))
+    vl = torch.full((b,), s, dtype=torch.int32, device="cuda")
+    mask = (torch.arange(s, device="cuda")[None] < vl[:, None])[:, None, None, :]  # the valid slots
+    bound, by = decode_bound(q, k, vl)
+    e = {
+        "ms": time_ms(lambda: dec.decode_attention_cuda(q, k, v, vl)),
+        "plain_ms": time_ms(lambda: ref.decode_attention_ref(q, k, v, vl)),
+        "bound_ms": bound, "bound_by": by,
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q[:, :, None], kr, vr, attn_mask=mask)),
     }
-    kb, vb = k.bfloat16(), v.bfloat16()
-    decode["bf16_cache_ms"] = time_ms(lambda: dec.decode_attention_cuda(qd, kb, vb, vl))
-    decode["bf16_cache_bound_ms"], decode["bf16_cache_bound_by"] = decode_bound(qd, kb, vl)
-    log(f"attention ({b},{h}->{kv},{s},{hd}) f32, ratios in this call: "
-        f"flash/SDPA {flash['ms'] / flash['library_ms']:.3f}, flash/plain {flash['ms'] / flash['plain_ms']:.3f}, "
-        f"flash/tc_bound {flash['ms'] / tc_bound:.3f} (tc_bound {tc_bound:.5f} ms, {tc_by}), "
-        f"flash/bound {flash['ms'] / f_bound:.3f}; decode/SDPA {decode['ms'] / decode['library_ms']:.3f}, "
-        f"decode/plain {decode['ms'] / decode['plain_ms']:.3f}, decode/bound {decode['ms'] / d_bound:.3f} "
-        f"(bound {d_bound:.6f} ms, {d_by}); bf16 cache {decode['bf16_cache_ms']:.6f} ms, "
-        f"/bound {decode['bf16_cache_ms'] / decode['bf16_cache_bound_ms']:.3f}")
-    return flash, decode
+    log(f"decode ({b},{h}->{kv},{s},{hd}) q {str(q_dtype)[6:]}, cache {str(cache_dtype)[6:]}, ratios in "
+        f"this call: /SDPA {e['ms'] / e['library_ms']:.3f}, /plain {e['ms'] / e['plain_ms']:.3f}, "
+        f"/bound {e['ms'] / bound:.3f} (bound {bound:.6f} ms, {by}); {e['ms']:.6f} ms")
+    return e
 
 
 def phase_kernel_line(counts: dict[str, int], errs: dict[str, float]) -> dict:
@@ -1035,6 +1194,14 @@ def phase_kernel_line(counts: dict[str, int], errs: dict[str, float]) -> dict:
         "glm4": {"max_abs_err": errs["glm4_flash_attention"], **g_flash},
         "toy": {"max_abs_err": errs["toy_flash_attention"], **t_flash},
         "nemotron": {"max_abs_err": errs["nemotron_flash_attention"], **n_flash},
+        "hymba": {"max_abs_err": errs["hymba_flash_attention"],
+                  **_flash_entry(gen, 8, 25, 5, 256, 64, torch.float32, 1024)},
+        "hymba_window": {"max_abs_err": errs["hymba_window_flash_attention"],
+                         **_flash_entry(gen, 1, 25, 5, 2048, 64, torch.float32, 1024)},
+        "internvl2": {"max_abs_err": errs["internvl2_flash_attention"],
+                      **_flash_entry(gen, 8, 14, 2, 256, 64, torch.float32)},
+        "musicgen": {"max_abs_err": errs["musicgen_flash_attention"],
+                     **_flash_entry(gen, 8, 32, 32, 256, 64, torch.bfloat16)},
     }
     decode = {
         "name": "decode_attention", "route": "cuda",
@@ -1046,6 +1213,12 @@ def phase_kernel_line(counts: dict[str, int], errs: dict[str, float]) -> dict:
                  "bf16_cache_max_abs_err": errs["glm4_bf16_cache_decode_attention"], **g_decode},
         "toy": {"max_abs_err": errs["toy_decode_attention"], **t_decode},
         "nemotron": {"max_abs_err": errs["nemotron_decode_attention"], **n_decode},
+        "hymba": {"max_abs_err": errs["hymba_decode_attention"],
+                  **_decode_entry(gen, 8, 25, 5, 1024, 64, torch.float32, torch.bfloat16)},
+        "internvl2": {"max_abs_err": errs["internvl2_decode_attention"],
+                      **_decode_entry(gen, 8, 14, 2, 256, 64, torch.float32, torch.float32)},
+        "musicgen": {"max_abs_err": errs["musicgen_decode_attention"],
+                     **_decode_entry(gen, 8, 32, 32, 256, 64, torch.bfloat16, torch.bfloat16)},
     }
 
     x = _randn(gen, (2048, 7168), torch.float32)
@@ -1061,6 +1234,18 @@ def phase_kernel_line(counts: dict[str, int], errs: dict[str, float]) -> dict:
         "bound_ms": r_bound, "bound_by": r_by,
         "library_ms": time_ms(lambda: F.rms_norm(x, (7168,), weight=scale, eps=1e-5)),
     }
+    xh, sh = _randn(gen, (2048, 1600), torch.float32), _randn(gen, (1600,), torch.float32)
+    h_bound, h_by = rmsnorm_bound(xh)
+    rmsnorm["hymba"] = {
+        "max_abs_err": errs["hymba_rmsnorm"],
+        "ms": time_ms(lambda: rms.rmsnorm_cuda(xh, sh, eps=1e-5)),
+        "plain_ms": time_ms(lambda: ref.rmsnorm_ref(xh, sh, 1e-5)),
+        "bound_ms": h_bound, "bound_by": h_by,
+        "library_ms": time_ms(lambda: F.rms_norm(xh, (1600,), weight=sh, eps=1e-5)),
+    }
+    log(f"rmsnorm (2048,1600) f32 (Hymba's (8,256) batch): {rmsnorm['hymba']['ms']:.6f} ms, /bound "
+        f"{rmsnorm['hymba']['ms'] / h_bound:.3f} (bound {h_bound:.6f} ms, {h_by}), /F.rms_norm "
+        f"{rmsnorm['hymba']['ms'] / rmsnorm['hymba']['library_ms']:.3f}")
 
     # The gating over Arctic's serve range (T = 32 .. 2048 rows of 128
     # experts, k 2) and one block's worth (T = 8, its latency floor): the
@@ -1243,6 +1428,275 @@ def run_nemotron() -> list[dict[str, int]]:
     return windows
 
 
+HYMBA_WRAP_LAYERS, HYMBA_WRAP_TOKENS = 2, 1100  # past the 1024-slot ring at full width
+GEMM_NAMES = ("gemm", "Gemm", "GEMM", "cutlass", "xmma", "splitK")
+
+
+def _by_class(events) -> dict[str, float]:
+    """Device ms of a profile's operations by class: the flash and rmsnorm
+    kernels, cuBLAS/CUTLASS GEMMs, and everything else."""
+    out = {"gemm": 0.0, "flash_attention": 0.0, "rmsnorm": 0.0, "other": 0.0}
+    for e in events:
+        cls = next((k for k in ("flash_attention", "rmsnorm") if f"{k}_kernel" in e.key), None)
+        if cls is None:
+            cls = "gemm" if any(n in e.key for n in GEMM_NAMES) else "other"
+        out[cls] += e.device_time_total / 1e3
+    return out
+
+
+def phase_hymba_prefill(engine) -> None:
+    """Where Hymba's (8, 256) prefill spends the card's time: the profile by
+    class (GEMMs, flash, rmsnorm, the rest), one layer's Mamba branch alone
+    and its chunk scan alone (the forward runs 32 of each), and the
+    prefill's peak memory above the weights."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import ssm
+
+    cfg = engine.model.cfg
+    tokens = np.ones((8, 256), np.int32)
+    engine.executor._run(tokens)  # warm
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms, _ = engine.executor._run(tokens)
+    peak = torch.cuda.max_memory_allocated() - base
+    log(f"hymba prefill (8,256): {ms:.4f} ms on the host's clock; peak {peak} bytes above the "
+        f"{base} bytes held before it")
+    classes = _by_class(_profile(lambda: engine.executor._run(tokens), "hymba", "prefill (8,256)"))
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    h = _randn(gen, (8, 256, cfg.d_model), torch.float32)
+    mp = engine.params["blocks"][0]["mamba"]
+    with torch.no_grad():
+        branch = sum(e.device_time_total for e in _profile(
+            lambda: ssm.mamba_apply(mp, h, cfg.mlstm_chunk), "hymba",
+            f"one layer's Mamba branch (8,256,{cfg.d_model})"))
+        a = torch.rand((8, 256, cfg.d_model, cfg.ssm_state), generator=gen, device="cuda")
+        b = _randn(gen, (8, 256, cfg.d_model, cfg.ssm_state), torch.float32)
+        h0 = torch.zeros((8, cfg.d_model, cfg.ssm_state), device="cuda")
+        scan = sum(e.device_time_total for e in _profile(
+            lambda: ssm._mamba_scan(a, b, h0, cfg.mlstm_chunk), "hymba",
+            f"one layer's chunk scan (8,256,{cfg.d_model},{cfg.ssm_state})"))
+    del a, b, h, h0
+    log(f"hymba where the time goes: prefill (8,256) device ms by class: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in classes.items())
+        + f"; one layer's Mamba branch {branch / 1e3:.4f} ms (x{cfg.n_layers} = "
+        f"{cfg.n_layers * branch / 1e3:.4f}), of which its chunk scan {scan / 1e3:.4f} ms "
+        f"(x{cfg.n_layers} = {cfg.n_layers * scan / 1e3:.4f})")
+
+
+def run_hymba(ecfg) -> list[dict[str, int]]:
+    """The first zoo model with a sliding window on the card: Hymba-1.5B at
+    full width and depth (32 layers, d 1600, 25 query heads on 5 KV heads of
+    64, Mamba heads of state 16, window 1024) served under Orloj, its token
+    path, decode ≡ forward over 16 tokens, the prefill's breakdown, then two
+    layers at full width across the 1024-slot ring's wrap."""
+    import torch
+
+    from repro_torch.configs.hymba_1_5b import CONFIG
+    from repro_torch.models import Model
+    from repro_torch.serving.engine import TorchServingEngine
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = TorchServingEngine(CONFIG, ecfg, seed=0)
+    torch.cuda.synchronize()
+    _check_no_grad(engine.params, "hymba")
+    log(f"hymba: {CONFIG.name} {CONFIG.n_layers} layers at full width: d {CONFIG.d_model}, "
+        f"{CONFIG.n_heads} query heads on {CONFIG.n_kv_heads} KV heads of {CONFIG.resolved_head_dim}, "
+        f"window {CONFIG.sliding_window}, Mamba state {CONFIG.ssm_state}, {CONFIG.mlp} d_ff {CONFIG.d_ff}, "
+        f"vocab {CONFIG.vocab_size}; {engine.model.param_count(engine.params)} params, "
+        f"{_nbytes(engine.params)} bytes of float32 weights; peak {torch.cuda.max_memory_allocated()} "
+        f"bytes after init (built in {time.perf_counter() - t0:.1f} s)")
+    windows = [phase_serve(engine, ecfg, "hymba", ("rmsnorm", "flash_attention"))]
+    log(f"hymba: peak {torch.cuda.max_memory_allocated()} bytes after serving")
+    windows.append(phase_tokens(engine, "hymba"))
+    windows.append(phase_decode_matches_forward(engine.model, engine.params, "hymba", prompt=16))
+    phase_hymba_prefill(engine)
+    del engine
+    _release()
+
+    cfg = dataclasses.replace(CONFIG, n_layers=HYMBA_WRAP_LAYERS)
+    model = Model(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(3))
+    _check_no_grad(params, "hymba ring wrap")
+    windows.append(phase_decode_matches_forward(
+        model, params, f"hymba ring wrap ({cfg.n_layers} layers)", prompt=HYMBA_WRAP_TOKENS, rows=1))
+    del model, params
+    _release()
+    return windows
+
+
+def phase_logits(model, params, label: str, batch: dict, dtype=None) -> dict[str, int]:
+    """One forward on the card over ``batch``: finite logits of the expected
+    shape (and of ``dtype``, float32 if None), its launches, every kernel
+    call held against its plain version."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    cfg = model.cfg
+    seq = sum(v.shape[1] for k, v in batch.items() if k in ("tokens", "frontend_embeds"))
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad(), _kernel_log() as calls:
+        got = model.logits(params, batch)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    ok = (got.shape == (next(iter(batch.values())).shape[0], seq, cfg.vocab_size)
+          and got.dtype == (dtype or torch.float32) and bool(torch.isfinite(got).all()))
+    log(f"{label}: logits {tuple(got.shape)} {str(got.dtype)[6:]} finite={ok}, max |logit| "
+        f"{got.float().abs().max().item():.3f} ({time.perf_counter() - t0:.2f} s with the holds); "
+        f"launches={counts}")
+    if not ok:
+        raise SystemExit(f"{label}: logits {tuple(got.shape)} {got.dtype}, not all finite or not of the "
+                         f"expected shape and type")
+    _hold_path_calls(calls, label)
+    return counts
+
+
+def run_xlstm() -> list[dict[str, int]]:
+    """The recurrent model: xLSTM-1.3B at full width and depth (48 blocks, d
+    2048, 4 heads of 512, every 8th block an sLSTM), which launches none of
+    the four kernels: decode ≡ forward, and the (8, 256) forward's seconds,
+    device operations and idle share, beside one sLSTM block's."""
+    import torch
+
+    from repro_torch.configs.xlstm_1_3b import CONFIG
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model, ssm
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(CONFIG, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    _check_no_grad(params, "xlstm")
+    log(f"xlstm: {CONFIG.name} {CONFIG.n_layers} blocks at full width: d {CONFIG.d_model}, "
+        f"{CONFIG.n_heads} heads of {CONFIG.d_model // CONFIG.n_heads}, one sLSTM block in every "
+        f"{CONFIG.slstm_every}, vocab {CONFIG.vocab_size}; {model.param_count(params)} params, {_nbytes(params)} bytes "
+        f"of float32 weights; peak {torch.cuda.max_memory_allocated()} bytes after init "
+        f"(built in {time.perf_counter() - t0:.1f} s); it launches none of the four kernels")
+    windows = [phase_decode_matches_forward(model, params, "xlstm", must_launch=())]
+    tokens = torch.ones((8, 256), dtype=torch.long, device="cuda")
+
+    def forward():
+        with torch.no_grad():
+            model.logits(params, {"tokens": tokens})
+
+    forward()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        forward()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    ops.reset_launch_counts()
+    forward()
+    torch.cuda.synchronize()
+    windows.append(ops.launch_counts())
+    log(f"xlstm forward (8,256): {sorted(times)[1]:.4f} s median of 3 on the host's clock "
+        f"(min {min(times):.4f}, max {max(times):.4f}); launches={windows[-1]}")
+    if any(windows[-1].values()):
+        raise SystemExit("xlstm: the forward launched a kernel, and it has none")
+    _profile(forward, "xlstm", "forward (8,256)")
+    slstm = next(i for i in range(CONFIG.n_layers) if CONFIG.slstm_every - 1 == i % CONFIG.slstm_every)
+    h = _randn(torch.Generator(device="cuda").manual_seed(5), (8, 256, CONFIG.d_model), torch.float32)
+    with torch.no_grad():
+        _profile(lambda: ssm.slstm_apply(params["blocks"][slstm]["cell"], h, CONFIG.n_heads),
+                 "xlstm", f"one sLSTM block's cell (8,256,{CONFIG.d_model}), 256 sequential steps")
+    log(f"xlstm: peak {torch.cuda.max_memory_allocated()} bytes over the xLSTM phase")
+    del model, params, h
+    _release()
+    return windows
+
+
+def run_internvl2() -> list[dict[str, int]]:
+    """The vision frontend: InternVL2-1B at full width and depth (24 layers,
+    d 896, 14 query heads on 2 KV heads of 64, vocab 151655): logits over 256
+    patch embeddings and 64 tokens, decode ≡ forward (flash and decode at a
+    group of 7), then one layer with a 512-word vocabulary against the CPU."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.internvl2_1b import CONFIG
+    from repro_torch.models import Model
+
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(CONFIG, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    _check_no_grad(params, "internvl2")
+    log(f"internvl2: {CONFIG.name} {CONFIG.n_layers} layers at full width: d {CONFIG.d_model}, "
+        f"{CONFIG.n_heads} query heads on {CONFIG.n_kv_heads} KV heads of {CONFIG.resolved_head_dim}, "
+        f"vision prefix of {CONFIG.n_frontend_tokens} embeddings of {model.frontend_dim}, vocab "
+        f"{CONFIG.vocab_size}; {model.param_count(params)} params, {_nbytes(params)} bytes of float32 weights")
+    rng = np.random.default_rng(6)
+    batch = {
+        "frontend_embeds": torch.from_numpy(
+            rng.normal(size=(2, CONFIG.n_frontend_tokens, 1024)).astype(np.float32)).cuda(),
+        "tokens": torch.from_numpy(rng.integers(0, CONFIG.vocab_size, size=(2, 64))).cuda(),
+    }
+    label = f"internvl2 logits ({CONFIG.n_frontend_tokens} patches + 64 tokens)"
+    windows = [phase_logits(model, params, label, batch)]
+    windows.append(phase_decode_matches_forward(model, params, "internvl2"))
+    log(f"internvl2: peak {torch.cuda.max_memory_allocated()} bytes")
+    del model, params, batch
+    _release()
+    # The config projects the prefix in bfloat16: the card's GEMM and the
+    # CPU's may round a sum on either side of a bf16 step.  So the logits
+    # are held with the prefix in float32, and the bf16 prefix on its own.
+    small = dataclasses.replace(CONFIG, n_layers=1, vocab_size=512)
+    model = Model(dataclasses.replace(small, dtype="float32"), device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(1))
+    phase_card_vs_cpu(model, params, "internvl2 card vs CPU (1 layer, vocab 512, prefix in float32)")
+    embeds = torch.from_numpy(rng.normal(size=(2, CONFIG.n_frontend_tokens, 1024)).astype(np.float32))
+    with torch.no_grad():
+        got = Model(small, device="cuda")._project_frontend(params, embeds.cuda()).cpu().float()
+        want = Model(small, device="cpu")._project_frontend(_to_cpu(params), embeds).float()
+    err = (got - want).abs().max().item()
+    ok = bool(torch.isclose(got, want, rtol=2**-7, atol=1e-4).all())
+    log(f"internvl2 card vs CPU: the bf16 prefix projection {tuple(got.shape)}: max_abs_err {err:.3e}, "
+        f"max |value| {want.abs().max().item():.3f} (rtol 2**-7, atol 1e-4: one bf16 step) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("internvl2: the bf16 prefix projection on the card disagrees with the CPU's")
+    del model, params
+    _release()
+    return windows
+
+
+def run_musicgen() -> list[dict[str, int]]:
+    """The first model that computes in bfloat16: MusicGen-large at full
+    width and depth (48 layers, d 2048, 32 heads of 64, gelu d_ff 8192),
+    weights in float32, audio frames projected in bfloat16 with no token
+    embedding: logits over 256 frames, decode ≡ forward over a bf16 cache
+    (the bf16 flash and bf16/bf16 decode instantiations)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.musicgen_large import CONFIG
+    from repro_torch.models import Model
+
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(CONFIG, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    _check_no_grad(params, "musicgen")
+    log(f"musicgen: {CONFIG.name} {CONFIG.n_layers} layers at full width: d {CONFIG.d_model}, "
+        f"{CONFIG.n_heads} heads of {CONFIG.resolved_head_dim}, {CONFIG.mlp} d_ff {CONFIG.d_ff}, "
+        f"frames of {model.frontend_dim}, vocab {CONFIG.vocab_size}, computing in {CONFIG.dtype}; "
+        f"{model.param_count(params)} params, {_nbytes(params)} bytes of float32 weights")
+    frames = torch.from_numpy(np.random.default_rng(7).normal(size=(2, 256, 512)).astype(np.float32))
+    windows = [phase_logits(model, params, "musicgen logits (256 frames)", {"frontend_embeds": frames.cuda()},
+                            dtype=torch.bfloat16)]
+    windows.append(phase_decode_matches_forward(model, params, "musicgen"))
+    log(f"musicgen: peak {torch.cuda.max_memory_allocated()} bytes")
+    del model, params
+    _release()
+    return windows
+
+
 ENGINE_SMOKE_ARTIFACT = ROOT / "build" / "BENCH_eval_torch_chip_smoke.json"
 
 
@@ -1258,7 +1712,6 @@ def run_engine_smoke() -> list[dict[str, int]]:
     version; those runs are outside the windows.  Writes the artifact under
     build/ and prints the drift report per model."""
     import numpy as np
-    import torch
 
     from repro_torch.eval import evaluate_claims, runner, substrate
     from repro_torch.eval.grid import engine_smoke
@@ -1303,8 +1756,7 @@ def run_engine_smoke() -> list[dict[str, int]]:
         flash_calls = [c for c in calls if c[0] == "flash_attention"]
         if not flash_calls:
             raise SystemExit(f"engine-smoke {model}: the held run made no flash call")
-        with torch.no_grad():
-            _hold_path_calls(flash_calls, f"engine-smoke {model} {cells[0].tag} (served again)")
+        _hold_path_calls(flash_calls, f"engine-smoke {model} {cells[0].tag} (served again)")
         del calls, flash_calls
         if model == "orloj_gpt":
             big = max(engine.cfg.batch_sizes), max(engine.cfg.buckets)
@@ -1369,6 +1821,8 @@ def main() -> int:
     ecfg = EngineConfig()
     windows = (timed("orloj_gpt", run_orloj_gpt, ecfg) + timed("arctic", run_arctic, ecfg)
                + timed("glm4", run_glm4) + timed("nemotron", run_nemotron)
+               + timed("hymba", run_hymba, ecfg) + timed("xlstm", run_xlstm)
+               + timed("internvl2", run_internvl2) + timed("musicgen", run_musicgen)
                + timed("engine-smoke", run_engine_smoke))
     counts = {name: sum(w[name] for w in windows) for name in _build.KERNELS}
 

@@ -1,10 +1,12 @@
-"""Decoder blocks of the port: the attention block with a dense MLP, an MoE
-layer, or both (Arctic's dense residual beside the MoE), for the full
-sequence (``block_apply``) and for one decode step over a KV cache
-(``init_block_cache``, ``block_decode``).
+"""Decoder blocks of the port, as :mod:`repro.models.blocks`: the attention
+block with a dense MLP, an MoE layer, or both (Arctic's dense residual
+beside the MoE); Hymba's hybrid block (attention ∥ Mamba heads, each
+RMS-normed, averaged); and xLSTM's mLSTM and sLSTM blocks.  For the full
+sequence (``block_apply``) and for one decode step (``init_block_cache``,
+``block_decode``).
 
-The Hymba and xLSTM blocks of :mod:`repro.models.blocks` are not ported
-yet (ROADMAP A8) and raise."""
+A block's cache holds what its kind needs: ``{"kv": …}`` for attention,
+``{"kv": …, "mamba": …}`` for Hymba, ``{"cell": …}`` for xLSTM's cells."""
 
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ from typing import Any
 import torch
 
 from . import moe as moe_lib
+from . import ssm
 from .config import ModelConfig
 from .layers import (
     DecodeSlot,
@@ -29,19 +32,29 @@ from .layers import (
 Params = dict[str, Any]
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the parts of the config this slice of the port lacks."""
-    if cfg.block_pattern != "attn":
-        raise NotImplementedError(
-            f"{cfg.block_pattern} blocks are not ported yet: ROADMAP A8 (SSM and recurrent cells)"
-        )
+def block_kind(cfg: ModelConfig, layer_idx: int) -> str:
+    if cfg.block_pattern == "xlstm":
+        return "slstm" if (layer_idx % cfg.slstm_every) == cfg.slstm_every - 1 else "mlstm"
+    if cfg.block_pattern == "hymba":
+        return "hymba"
+    return "attn"
 
 
 def init_block(gen: torch.Generator, cfg: ModelConfig, layer_idx: int) -> Params:
-    check_supported(cfg)
+    kind = block_kind(cfg, layer_idx)
     d = cfg.d_model
     p: Params = {"norm1": init_norm(gen, d, cfg.norm)}
+    if kind == "mlstm":
+        p["cell"] = ssm.init_mlstm(gen, d, cfg.n_heads)
+        return p
+    if kind == "slstm":
+        p["cell"] = ssm.init_slstm(gen, d, cfg.n_heads)
+        return p
     p["attn"] = init_attention(gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim)
+    if kind == "hymba":
+        p["mamba"] = ssm.init_mamba(gen, d, cfg.ssm_state)
+        p["norm_attn"] = init_norm(gen, d, "rmsnorm")
+        p["norm_ssm"] = init_norm(gen, d, "rmsnorm")
     p["norm2"] = init_norm(gen, d, cfg.norm)
     if cfg.is_moe:
         p["moe"] = moe_lib.init_moe(gen, d, cfg.d_ff, cfg.n_experts)
@@ -52,13 +65,28 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, layer_idx: int) -> Params
     return p
 
 
+def _hymba_mix(params: Params, attn_out: torch.Tensor, ssm_out: torch.Tensor) -> torch.Tensor:
+    """0.5·(rmsnorm(attention) + rmsnorm(SSM)), both through the rmsnorm kernel."""
+    return 0.5 * (
+        norm_apply(params["norm_attn"], attn_out, "rmsnorm")
+        + norm_apply(params["norm_ssm"], ssm_out, "rmsnorm")
+    )
+
+
 def block_apply(
     params: Params, x: torch.Tensor, cfg: ModelConfig, layer_idx: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward.  Returns (x, aux_loss); aux is 0 without MoE."""
-    check_supported(cfg)
+    kind = block_kind(cfg, layer_idx)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
     h = norm_apply(params["norm1"], x, cfg.norm)
-    x = x + attention_apply(
+    # The reference bounds its unrolled carry to <= 32 chunks, growing the chunk.
+    chunk = max(cfg.mlstm_chunk, x.shape[1] // 32)
+    if kind == "mlstm":
+        return x + ssm.mlstm_apply(params["cell"], h, chunk), zero
+    if kind == "slstm":
+        return x + ssm.slstm_apply(params["cell"], h, cfg.n_heads), zero
+    attn_out = attention_apply(
         params["attn"],
         h,
         n_kv=cfg.n_kv_heads,
@@ -67,8 +95,12 @@ def block_apply(
         softcap=cfg.logit_softcap,
         repeat_kv=cfg.gqa_repeat_kv,
     )
+    if kind == "hymba":
+        x = x + _hymba_mix(params, attn_out, ssm.mamba_apply(params["mamba"], h, chunk))
+    else:
+        x = x + attn_out
     x, aux = _ffn(params, x, cfg)
-    return x, aux if aux is not None else torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux if aux is not None else zero
 
 
 def _ffn(
@@ -101,13 +133,23 @@ def init_block_cache(
     dtype: torch.dtype = torch.bfloat16,
     device: str | torch.device = "cuda",
 ) -> Params:
-    """The layer's KV cache, on the card unless the caller asks for the
-    CPU; with a sliding window, a ring of min(cache_len, window) slots."""
-    check_supported(cfg)
+    """The layer's decode state, on the card unless the caller asks for the
+    CPU: a KV cache of ``dtype`` (with a sliding window, a ring of
+    min(cache_len, window) slots), and for the SSM kinds their float32
+    states, whatever ``dtype`` is (as the reference)."""
+    kind = block_kind(cfg, layer_idx)
+    d = cfg.d_model
+    if kind == "mlstm":
+        return {"cell": ssm.init_mlstm_cache(batch, d, cfg.n_heads, device=device)}
+    if kind == "slstm":
+        return {"cell": ssm.init_slstm_cache(batch, d, device=device)}
     eff_len = min(cache_len, cfg.sliding_window) if cfg.sliding_window else cache_len
-    return {
+    c: Params = {
         "kv": init_kv_cache(batch, cfg.n_kv_heads, eff_len, cfg.resolved_head_dim, dtype, device)
     }
+    if kind == "hymba":
+        c["mamba"] = ssm.init_mamba_cache(batch, d, cfg.ssm_state, device=device)
+    return c
 
 
 def block_decode(
@@ -119,11 +161,17 @@ def block_decode(
     layer_idx: int,
 ) -> tuple[torch.Tensor, Params]:
     """One-token decode step, x: (B, 1, d); ``pos`` as in
-    :func:`.layers.attention_decode`.  The cache is updated in place and
-    returned."""
-    check_supported(cfg)
+    :func:`.layers.attention_decode` (unused by the xLSTM cells).  The cache
+    is updated in place and returned."""
+    kind = block_kind(cfg, layer_idx)
     h = norm_apply(params["norm1"], x, cfg.norm)
-    attn_out, kv = attention_decode(
+    if kind == "mlstm":
+        out, _ = ssm.mlstm_decode(params["cell"], h, cache["cell"])
+        return x + out, cache
+    if kind == "slstm":
+        out, _ = ssm.slstm_decode(params["cell"], h, cache["cell"], cfg.n_heads)
+        return x + out, cache
+    attn_out, _ = attention_decode(
         params["attn"],
         h,
         cache["kv"],
@@ -133,5 +181,10 @@ def block_decode(
         sliding_window=cfg.sliding_window,
         softcap=cfg.logit_softcap,
     )
-    x, _ = _ffn(params, x + attn_out, cfg)
-    return x, {"kv": kv}
+    if kind == "hymba":
+        ssm_out, _ = ssm.mamba_decode(params["mamba"], h, cache["mamba"])
+        x = x + _hymba_mix(params, attn_out, ssm_out)
+    else:
+        x = x + attn_out
+    x, _ = _ffn(params, x, cfg)
+    return x, cache

@@ -29,9 +29,6 @@ from ..kernels import ops
 
 Params = dict[str, Any]
 
-# ROADMAP item of the features this slice of the port does not carry yet.
-ZOO_ITEM = "ROADMAP A9 (rest of the zoo: vision and audio frontends)"
-
 
 def _init(gen: torch.Generator, shape, scale=None) -> torch.Tensor:
     """Normal(0, 1)·scale, scale 1/sqrt(shape[0]) by default (as
@@ -104,7 +101,7 @@ def init_attention(gen: torch.Generator, d: int, n_heads: int, n_kv: int, head_d
 
 
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x: (B, S, d) @ w: (d, heads, hd) → (B, S, heads, hd)."""
+    """x: (..., d) @ w: (d, heads, hd) → (..., heads, hd)."""
     d, heads, hd = w.shape
     return (x @ w.to(x.dtype).reshape(d, heads * hd)).unflatten(-1, (heads, hd))
 

@@ -1,17 +1,24 @@
-"""Model assembly of the port: embeddings + decoder blocks + head.
+"""Model assembly of the port: embeddings (or a frontend's projected
+embeddings) + decoder blocks + head.
 
 The counterpart of :class:`repro.models.Model` for serving: the forward
 (``hidden_states`` / ``logits``), ``prefill``, and one-token decoding over
-a KV cache (``init_cache`` / ``decode_step``).  Parameters are a dict of
-tensors in the JAX layout, passed explicitly as in the reference; the
-per-layer parameters are always a list of ``n_layers`` dicts (the scanned,
-stacked layout of the reference is unstacked by :mod:`.convert`), and so
-is the cache: a list of ``n_layers`` dicts ``{"kv": {"k", "v"}}`` in the
-decode kernel's (B, KV, S, head_dim) layout.
+a cache (``init_cache`` / ``decode_step``), for every block kind of the
+zoo (attention, MoE, Hymba, xLSTM) and both frontends.  Parameters are a
+dict of tensors in the JAX layout, passed explicitly as in the reference;
+the per-layer parameters are always a list of ``n_layers`` dicts (the
+scanned, stacked layout of the reference is unstacked by :mod:`.convert`),
+and so is the cache: a list of ``n_layers`` per-layer dicts (see
+:func:`.blocks.init_block_cache`), the KV caches in the decode kernel's
+(B, KV, S, head_dim) layout.
 
-Numerics follow the reference, quirks included: the embedding is cast to
-``cfg.dtype`` and then scaled by a float32 √d, which JAX promotes to
-float32, so a "bfloat16" config computes every later layer in float32.
+Numerics follow the reference, quirks included: the token embedding is
+cast to ``cfg.dtype`` and then scaled by a float32 √d, which JAX promotes
+to float32, so a "bfloat16" config computes every later layer in float32.
+An audio model has no token embedding: its frame embeddings are projected
+in ``cfg.dtype`` and the whole stack computes in it (bfloat16 for
+MusicGen).  A vision prefix is projected in ``cfg.dtype`` and joined to the
+float32 tokens, which JAX promotes to float32.
 """
 
 from __future__ import annotations
@@ -23,10 +30,9 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from .blocks import block_apply, block_decode, check_supported, init_block, init_block_cache
+from .blocks import block_apply, block_decode, init_block, init_block_cache
 from .config import ModelConfig
 from .layers import (
-    ZOO_ITEM,
     DecodeSlot,
     _init,
     decode_slot,
@@ -39,13 +45,12 @@ from .layers import (
 
 Params = dict[str, Any]
 
+FRONTEND_DIMS = {"vision": 1024, "audio": 512}
+
 
 class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device: str | torch.device = "cuda"):
         super().__init__()
-        check_supported(cfg)
-        if cfg.frontend:
-            raise NotImplementedError(f"{cfg.frontend} frontends are not ported yet: {ZOO_ITEM}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = getattr(torch, cfg.dtype)
@@ -58,7 +63,11 @@ class Model(nn.Module):
         if generator.device.type != self.device.type:
             raise ValueError(f"generator on {generator.device}, model on {self.device}")
         cfg = self.cfg
-        params: Params = {"embed": init_embedding(generator, cfg.vocab_size, cfg.d_model)}
+        params: Params = {}
+        if cfg.frontend != "audio":
+            params["embed"] = init_embedding(generator, cfg.vocab_size, cfg.d_model)
+        if cfg.frontend:
+            params["frontend_proj"] = _init(generator, (self.frontend_dim, cfg.d_model))
         params["blocks"] = [init_block(generator, cfg, i) for i in range(cfg.n_layers)]
         params["final_norm"] = init_norm(generator, cfg.d_model, cfg.norm)
         if not cfg.tie_embeddings:
@@ -67,19 +76,41 @@ class Model(nn.Module):
             )
         return params
 
+    @property
+    def frontend_dim(self) -> int:
+        return FRONTEND_DIMS.get(self.cfg.frontend, 0)
+
     # ----------------------------------------------------------- forward
-    def _embed_inputs(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    def _embed_tokens(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
         # bfloat16 × float32 scalar is float32 in JAX; torch would keep bf16.
         return embed_apply(params["embed"], tokens, self.dtype).float() * math.sqrt(
             self.cfg.d_model
         )
+
+    def _project_frontend(self, params: Params, embeds: torch.Tensor) -> torch.Tensor:
+        return embeds.to(self.dtype) @ params["frontend_proj"].to(self.dtype)
+
+    def _embed_inputs(self, params: Params, batch: dict[str, torch.Tensor]) -> torch.Tensor:
+        """The stack's input: the projected frontend embeddings (vision: a
+        prefix; audio: the whole input, in ``cfg.dtype``), then the embedded
+        tokens (not for audio), joined in the promoted type as JAX joins them."""
+        cfg = self.cfg
+        parts = []
+        if cfg.frontend:
+            parts.append(self._project_frontend(params, batch["frontend_embeds"]))
+        if "tokens" in batch and cfg.frontend != "audio":
+            parts.append(self._embed_tokens(params, batch["tokens"]))
+        if len(parts) == 1:
+            return parts[0]
+        dtype = torch.promote_types(parts[0].dtype, parts[1].dtype)
+        return torch.cat([p.to(dtype) for p in parts], 1)
 
     def hidden_states(
         self, params: Params, batch: dict[str, torch.Tensor]
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """Full-sequence forward → (hidden (B, S, d), aux_loss)."""
         cfg = self.cfg
-        x = self._embed_inputs(params, batch["tokens"])
+        x = self._embed_inputs(params, batch)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, bp in enumerate(params["blocks"]):
             x, da = block_apply(bp, x, cfg, i)
@@ -99,9 +130,10 @@ class Model(nn.Module):
     def init_cache(
         self, batch: int, cache_len: int, dtype: torch.dtype = torch.bfloat16
     ) -> list[Params]:
-        """One zeroed KV cache per layer, on the model's device, bfloat16 by
-        default as in the reference (K/V are rounded to it when written and
-        read back to float32 by the step)."""
+        """One zeroed decode state per layer, on the model's device: KV
+        caches of ``dtype``, bfloat16 by default as in the reference (K/V are
+        rounded to it when written and read back to the step's type), and
+        the SSM kinds' float32 states."""
         return [
             init_block_cache(self.cfg, i, batch, cache_len, dtype, self.device)
             for i in range(self.cfg.n_layers)
@@ -125,23 +157,31 @@ class Model(nn.Module):
         cache: list[Params],
         pos: int | torch.Tensor,
     ) -> tuple[torch.Tensor, list[Params]]:
-        """One token for every row.  tokens: (B, 1) ids; ``pos``: the
-        position of every row (an int or a 0-d tensor).  Returns (logits
-        (B, 1, V), cache); **the cache is updated in place** and returned."""
+        """One token for every row.  tokens: (B, 1) ids, or for audio the
+        (B, 1, 512) frame embeddings; ``pos``: the position of every row (an
+        int or a 0-d tensor).  Returns (logits (B, 1, V), cache); **the cache
+        is updated in place** and returned."""
         cfg = self.cfg
-        x = self._embed_inputs(params, tokens)
+        if cfg.frontend == "audio":
+            x = self._project_frontend(params, tokens)
+        else:
+            x = self._embed_tokens(params, tokens)
         # The slot, the valid length and the rotary tables are the same for
-        # every layer of a cache length: made once per step.
+        # every attention layer of a cache length: made once per step.
         slots: dict[int, DecodeSlot] = {}
         new_cache = []
         for i, (bp, c) in enumerate(zip(params["blocks"], cache, strict=True)):
-            n = c["kv"]["k"].shape[2]
-            if n not in slots:
-                slots[n] = decode_slot(
-                    pos, x.shape[0], n, head_dim=cfg.resolved_head_dim,
-                    rope_theta=cfg.rope_theta, sliding_window=cfg.sliding_window, device=x.device,
-                )
-            x, c2 = block_decode(bp, x, c, slots[n], cfg, i)
+            at = pos
+            if "kv" in c:
+                n = c["kv"]["k"].shape[2]
+                if n not in slots:
+                    slots[n] = decode_slot(
+                        pos, x.shape[0], n, head_dim=cfg.resolved_head_dim,
+                        rope_theta=cfg.rope_theta, sliding_window=cfg.sliding_window,
+                        device=x.device,
+                    )
+                at = slots[n]
+            x, c2 = block_decode(bp, x, c, at, cfg, i)
             new_cache.append(c2)
         x = norm_apply(params["final_norm"], x, cfg.norm)
         return self._head(params, x), new_cache

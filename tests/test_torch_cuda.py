@@ -458,3 +458,64 @@ def test_kernels_refuse_inputs_that_require_grad(cuda_device, op):
         assert mod.launches == before + 1
         t.requires_grad_(False)
     call()  # grad mode on, nothing requires grad: the serving paths' case
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["hymba_1_5b", "xlstm_1_3b", "internvl2_1b", "musicgen_large"])
+def test_zoo_model_on_the_card_matches_the_cpu(cuda_device, arch):
+    """The SSM, recurrent and frontend models at .reduced() on the card
+    against the same weights on the CPU: the forward over 80 positions
+    (Hymba's 64-token window cuts keys in the flash kernel) and 70 decode
+    steps (its 64-slot ring wraps), logits to 1e-3; MusicGen on frame
+    embeddings.  Every attention layer launches the flash kernel once a
+    forward and the decode kernel once a step; xLSTM launches neither."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    cfg = get_config(arch).reduced()
+    card, cpu = Model(cfg, device=cuda_device), Model(cfg, device="cpu")
+    params = card.init(torch.Generator(device=cuda_device).manual_seed(12))
+    cpu_params = _tree_to(params, "cpu")
+    rng = np.random.default_rng(12)
+    if cfg.frontend == "audio":
+        inputs = torch.from_numpy(rng.normal(size=(2, 80, 512)).astype(np.float32))
+        batch = {"frontend_embeds": inputs}
+    else:
+        inputs = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(2, 80)))
+        batch = {"tokens": inputs}
+        if cfg.frontend == "vision":
+            batch["frontend_embeds"] = torch.from_numpy(
+                rng.normal(size=(2, cfg.n_frontend_tokens, 1024)).astype(np.float32))
+    attn_layers = cfg.n_layers if cfg.uses_attention else 0
+    before = (fa_mod.launches, dec_mod.launches)
+    with torch.no_grad():
+        got = card.logits(params, {k: v.to(cuda_device) for k, v in batch.items()})
+        want = cpu.logits(cpu_params, batch)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)
+        c_card, c_cpu = card.init_cache(2, 128), cpu.init_cache(2, 128)
+        for i in range(70):
+            x = inputs[:, i : i + 1]
+            got, c_card = card.decode_step(params, x.to(cuda_device), c_card, i)
+            want, c_cpu = cpu.decode_step(cpu_params, x, c_cpu, i)
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)
+    assert (fa_mod.launches, dec_mod.launches) == (before[0] + attn_layers, before[1] + 70 * attn_layers)
+
+
+@pytest.mark.cuda
+def test_xlstm_token_path_refuses_head_size_512(cuda_device):
+    """The token path's executor prices decode attention at d_model /
+    n_heads: 512 for xLSTM-1.3B, which the decode kernel does not take.  On
+    the card that is a clear ValueError at the executor's warm-up step, not
+    a quiet turn to the plain version."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import DecodeTorchExecutor
+
+    full = get_config("xlstm_1_3b")
+    cfg = full.reduced(d_model=full.d_model, n_heads=full.n_heads, n_kv_heads=full.n_kv_heads)
+    assert cfg.d_model // cfg.n_heads == 512
+    before = dec_mod.launches
+    with pytest.raises(ValueError, match="head_dim 512 not supported"):
+        DecodeTorchExecutor(cfg, max_batch=2, max_cache=16, device=cuda_device)
+    assert dec_mod.launches == before

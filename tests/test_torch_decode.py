@@ -184,6 +184,25 @@ def test_caches_default_to_the_card():
 
 
 # ------------------------------------------------------ Model.decode_step
+def _step_inputs(cfg, rng, batch: int, steps: int) -> np.ndarray:
+    """What decode_step takes for ``steps`` positions: token ids, or for an
+    audio model its (B, steps, 512) frame embeddings."""
+    if cfg.frontend == "audio":
+        return rng.normal(size=(batch, steps, 512)).astype(np.float32)
+    return rng.integers(0, cfg.vocab_size, size=(batch, steps))
+
+
+def _forward_batch(cfg, inputs: torch.Tensor) -> dict:
+    """The forward's batch for the same positions: an audio model reads the
+    frame embeddings; a vision model takes an empty image prefix, since the
+    decode step reads tokens only."""
+    if cfg.frontend == "audio":
+        return {"frontend_embeds": inputs}
+    if cfg.frontend == "vision":
+        return {"frontend_embeds": torch.zeros((inputs.shape[0], 0, 1024)), "tokens": inputs}
+    return {"tokens": inputs}
+
+
 def _decode_pair(cfg, seed: int, steps: int, dtype: str, batch: int = 2, cache_len: int = 16):
     """The reference's and the port's decode_step over ``steps`` tokens on
     the same weights; yields (step, port logits, reference logits, port
@@ -195,7 +214,7 @@ def _decode_pair(cfg, seed: int, steps: int, dtype: str, batch: int = 2, cache_l
     tparams = from_numpy(_np_tree(jparams), cfg, device="cpu")
     jcache = jm.init_cache(batch, cache_len=cache_len, dtype=jdt)
     tcache = tm.init_cache(batch, cache_len, dtype=tdt)
-    tokens = np.random.default_rng(seed).integers(0, cfg.vocab_size, size=(batch, steps))
+    tokens = _step_inputs(cfg, np.random.default_rng(seed), batch, steps)
     for i in range(steps):
         want, jcache = jm.decode_step(jparams, jnp.asarray(tokens[:, i : i + 1]), jcache,
                                       jnp.int32(i))
@@ -217,8 +236,9 @@ def _close_caches(tcache, jcache, cfg, dtype: str):
     [(a, "float32") for a in ARCHS] + [("glm4_9b", "bfloat16"), ("dbrx_132b", "bfloat16")],
 )
 def test_decode_step_matches_jax(arch, dtype):
-    """Eight steps of every attention arch of the port at ``.reduced()``:
-    the logits after each step and the whole cache after the last."""
+    """Eight steps of every arch of the port at ``.reduced()`` (MusicGen
+    on frame embeddings): the logits after each step and the whole cache
+    after the last."""
     cfg = get_config(arch).reduced()
     for i, got, want, tcache, jcache in _decode_pair(cfg, seed=24, steps=8, dtype=dtype):
         assert got.shape == (2, 1, cfg.vocab_size) and got.dtype == torch.float32
@@ -250,9 +270,9 @@ def test_decode_matches_forward(arch):
     cfg = get_config(arch).reduced()
     model = Model(cfg, device="cpu")
     params = model.init(torch.Generator().manual_seed(26))
-    tokens = torch.from_numpy(np.random.default_rng(26).integers(0, cfg.vocab_size, size=(2, 10)))
+    tokens = torch.from_numpy(_step_inputs(cfg, np.random.default_rng(26), 2, 10))
     with torch.no_grad():
-        full = model.logits(params, {"tokens": tokens})
+        full = model.logits(params, _forward_batch(cfg, tokens))
         cache = model.init_cache(2, 16, dtype=torch.float32)
         steps = []
         for i in range(tokens.shape[1]):

@@ -27,14 +27,17 @@ from repro.core.eventloop import run_event_loop as j_run_event_loop  # noqa: E40
 from repro.eval import ExperimentSpec as JSpec  # noqa: E402
 from repro.eval import run_spec as j_run_spec  # noqa: E402
 from repro.eval.grid import engine_smoke as j_engine_smoke  # noqa: E402
+from repro.eval.grid import multi_model_smoke as j_multi_model_smoke  # noqa: E402
+from repro.eval.spec import TIMING_FIELDS  # noqa: E402
+from repro.serving.residency import zoo_profile as j_zoo_profile  # noqa: E402
 from repro_torch.core.distributions import BatchLatencyModel  # noqa: E402
 from repro_torch.core.eventloop import run_event_loop  # noqa: E402
 from repro_torch.eval import ExperimentSpec, evaluate_claims, run_spec  # noqa: E402
-from repro_torch.eval.grid import engine_smoke  # noqa: E402
+from repro_torch.eval.grid import engine_smoke, multi_model_smoke  # noqa: E402
 from repro_torch.eval.run import DEFAULT_OUT  # noqa: E402
 from repro_torch.eval.run import main as run_main  # noqa: E402
 from repro_torch.eval.runner import read_artifact  # noqa: E402
-from repro_torch.serving.residency import zoo_profile  # noqa: E402
+from repro_torch.serving.residency import DEFAULT_ROSTER, zoo_profile  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 TOY = tsub.ENGINE_MODELS["orloj_gpt"]
@@ -129,13 +132,26 @@ def test_engine_cell_on_the_card_raises_without_one(monkeypatch):
     assert ("orloj_gpt", "cuda") not in tsub._ENGINE_CACHE
 
 
-def test_zoo_profile_waits_for_the_ssm_and_frontend_models():
-    """The multi-model grids reach ``zoo_profile``; the port's registry
-    lacks the SSM, recurrent and frontend archs until they are ported."""
-    assert zoo_profile("olmo_1b").nbytes > 0
-    for arch in ("hymba_1_5b", "xlstm_1_3b", "internvl2_1b", "musicgen_large"):
-        with pytest.raises(ValueError, match="unknown model"):
-            zoo_profile(arch)
+@pytest.mark.parametrize("arch", DEFAULT_ROSTER)
+def test_zoo_profile_is_the_references(arch):
+    """The multi-model grids price each roster model by ``zoo_profile``:
+    with the whole zoo in the port's registry, every entry is the
+    reference's."""
+    assert dataclasses.asdict(zoo_profile(arch)) == dataclasses.asdict(j_zoo_profile(arch))
+
+
+def test_multi_model_smoke_cell_is_the_references():
+    """A multi-model-smoke cell whose 4-model roster holds InternVL2, Hymba
+    and xLSTM (the cold-start sweep under the residency policy), on the sim
+    substrate: the port's outcome is the reference's, bit for bit."""
+    (spec,) = [s for s in multi_model_smoke() if s.tag == "mm/coldstart/residency/s7"]
+    (jspec,) = [s for s in j_multi_model_smoke() if s.tag == spec.tag]
+    assert spec.to_dict() == jspec.to_dict() and spec.n_models == 4
+    ours, theirs = run_spec(spec).to_dict(), j_run_spec(jspec).to_dict()
+    for timing in TIMING_FIELDS:
+        ours.pop(timing), theirs.pop(timing)
+    assert ours == theirs
+    assert ours["n_finished_ok"] > 0
 
 
 def _cell_spec(mod, **kw):

@@ -204,11 +204,22 @@ def test_model_init_draws_the_reference_shapes_and_scales():
 
 
 @pytest.mark.parametrize("arch_change", [{"frontend": "vision", "n_frontend_tokens": 8},
-                                         {"block_pattern": "hymba"}, {"block_pattern": "xlstm"}])
+                                         {"block_pattern": "hymba", "ssm_state": 16},
+                                         {"block_pattern": "xlstm"}])
 def test_blocks_not_ported_raise(arch_change):
+    """The frontend and the block kinds that raised until they were ported
+    now build and run a forward (their parity with the reference is held in
+    test_torch_zoo.py and test_torch_ssm.py)."""
     cfg = dataclasses.replace(get_config("orloj_gpt").reduced(), **arch_change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(cfg, device="cpu")
+    model = Model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    batch = {"tokens": torch.ones((1, 8), dtype=torch.long)}
+    if cfg.frontend:
+        batch["frontend_embeds"] = torch.ones((1, cfg.n_frontend_tokens, model.frontend_dim))
+    with torch.no_grad():
+        logits = model.logits(params, batch)
+    assert logits.shape == (1, 8 + cfg.n_frontend_tokens, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())
 
 
 # ------------------------------------------------------------------- MoE
