@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port of the Orloj serving path on one NVIDIA GPU.
+"""Drive the PyTorch + CUDA port of Orloj (serving and training) on one NVIDIA GPU.
 
     python3 chip_smoke.py        (from the root of a checkout; needs one card)
 
@@ -7,10 +7,11 @@ Phases, each reported on its own lines; any failure exits non-zero:
 
 1. card: the GPU's name and power limit (``nvidia-smi``), the torch, CUDA
    and nvcc versions;
-2. build: the four kernels (flash and decode attention, RMSNorm, MoE
-   gating) built from ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a,
-   with each kernel's registers, spills and static shared memory from
-   ``-Xptxas -v``;
+2. build: the seven kernels (flash and decode attention, RMSNorm, MoE
+   gating, and the backwards of flash attention, RMSNorm and the gates)
+   built from ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a, one
+   nvcc a source, all started together, with each kernel's registers,
+   spills and static shared memory from ``-Xptxas -v``;
 3. kernels vs plain: each CUDA kernel against its plain PyTorch version on
    the card, at both models' shapes and at the edges of their tilings (the
    32-key bucket, S = 1, ragged S, groups of 1 to 8 query heads, empty and
@@ -33,7 +34,17 @@ Phases, each reported on its own lines; any failure exits non-zero:
    its window of 1024 (S 256, 1100 and 2048), InternVL2's group of 7 (S 256
    and 320) and MusicGen's bf16 heads, decode over Hymba's 1024-slot ring
    (float32 and bf16 caches), at InternVL2's group of 7 and in bf16/bf16 at
-   MusicGen's group of 1, rmsnorm at Hymba's (2048, 1600);
+   MusicGen's group of 1, rmsnorm at Hymba's (2048, 1600); decode at head
+   size 512 (xLSTM-1.3B's token path: a group of 1 in float32);
+3b. backward vs plain: each backward kernel, through the ``ops`` autograd
+   Functions, against autograd through its plain version on the same
+   inputs and output gradients (relative to the largest gradient: flash in
+   float32 to 1e-4, RMSNorm's dx and the gates to 1e-5, RMSNorm's dscale to
+   1e-4, bf16 to 2e-2): flash at the training shapes (orloj_gpt's, GLM-4's
+   GQA 16:1 at S 1024, Arctic's, Hymba's windows) and at head sizes 16, 32,
+   128 and 192 with lengths, an empty row (zero gradients), softcap, full
+   attention, S 1 and bf16; RMSNorm at GLM-4's, Arctic's and Hymba's widths;
+   the gates at Arctic's, E 3 to 256, ties, -inf logits, bf16;
 4. orloj_gpt: full width (12 layers, d 768, 12 heads, vocab 32000, weights
    from a seeded ``torch.Generator``) profiled for Eq. 3 and serving 100
    requests under the Orloj scheduler; the logits of a small batch held
@@ -65,9 +76,11 @@ Phases, each reported on its own lines; any failure exits non-zero:
    at full width: a forward of 1100 tokens against 1100 decode steps across
    the 1024-slot ring's wrap;
 9. xlstm: xLSTM-1.3B at full width and depth (48 blocks, d 2048, 4 heads of
-   512, one sLSTM block in 8), which launches none of the four kernels:
-   decode ≡ forward, the (8, 256) forward's seconds, device operations and
-   idle share, and one sLSTM cell's 256 sequential steps;
+   512, one sLSTM block in 8), whose model path launches none of the
+   kernels: decode ≡ forward, its token path through the engine (the
+   decode kernel at head size 512, every call held against the plain
+   version), the (8, 256) forward's seconds, device operations and idle
+   share, and one sLSTM cell's 256 sequential steps;
 10. internvl2: InternVL2-1B at full width and depth (24 layers, d 896, 14
    query heads on 2 KV heads): logits over 256 patch embeddings and 64
    tokens, decode ≡ forward (flash and decode at a group of 7), and one
@@ -85,13 +98,25 @@ Phases, each reported on its own lines; any failure exits non-zero:
    window; the artifact under ``build/``, the drift report per model, and
    every flash call of one re-served cell of each model held against the
    plain version;
-13. one line per kernel and shape with the kernel's ratios to SDPA, to
+13. training (``repro_torch.launch.train.train``, the CLI's body): T1,
+   full-width orloj_gpt 50 steps at (8, 256), the loss must improve; T2,
+   GLM-4-9B at full width cut to 4 layers with its recomputation and loss
+   chunks of 512, 5 steps at (2, 1024); each with its ms/step, the corpus's
+   host share, peak memory, launches and one profiled step (busy, idle).
+   T3 and T4: one train step on the card against the CPU (loss, gradient
+   norm, every gradient leaf, the parameters after AdamW) at GLM-4's widths
+   cut to 1 layer and a 512-word vocabulary, full-width orloj_gpt, Arctic
+   ``.reduced(n_experts=16)`` and Hymba ``.reduced()``;
+14. one line per kernel and shape with the kernel's ratios to SDPA, to
    their plain versions and to their bounds, then the ``kernels`` line
    (JSON): launches on the main paths, kernel, plain and library times,
    and the least time the card could take (for flash also on the tensor
-   cores: ``tc_bound_ms``; for the gating also its own duration from the
-   profiler, ``own_ms``, and both times at T = 8, 32, 256 and 2048,
-   ``by_T``).
+   cores: ``tc_bound_ms``, and the forward with its LSE output off and on,
+   ``lse``; for the gating also its own duration from the profiler,
+   ``own_ms``, and both times at T = 8, 32, 256 and 2048, ``by_T``; for
+   the backwards the kernel by graph replay, ``ms``, and between CUDA
+   events, ``event_ms``, beside autograd through the plain version and the
+   library's backward, both between events).
 
 Phases 4 and 5 also run decode ≡ forward: a prompt of a few tokens for 2
 rows through ``Model.logits`` and the same tokens one by one through
@@ -102,10 +127,12 @@ and 11, is held against its plain version on the call's own inputs as it
 returns, at the phase 3 tolerances (one line per kernel and shape;
 ``path_calls_held`` and ``path_max_abs_err`` in the ``kernels`` line).
 
-The launch counters are set to 0 just before each serve, token, forward
-and decode ≡ forward path and each engine-smoke cell, and read just after;
-the line's launches are their sums.  Every path checks that no parameter
-requires grad (the kernels refuse such inputs under grad mode).  The
+The launch counters are set to 0 just before each serve, token, forward,
+decode ≡ forward and training path and each engine-smoke cell, and read
+just after; the line's launches are their sums.  Recomputation (T2) runs
+each block's forward again in the backward, so T2's forward launches are
+twice its backward ones.  Every serving path checks that no parameter
+requires grad (the raw launchers refuse such inputs under grad mode).  The
 holds of the paths' kernel calls run inside the windows and launch no
 kernel; the card-vs-CPU comparisons and the timings run outside them.
 Each phase prints its seconds.  The last line is ``{"ok": true, "device": {...}}``.
@@ -185,28 +212,55 @@ def time_ms(fn, reps: int = 20, graphs: int = 5) -> float:
     return start.elapsed_time(end) / (reps * graphs)
 
 
-def own_ms(fn, kernel: str, calls: int = 20) -> float:
+def own_ms(fn, kernel: str, calls: int = 20, attempts: int = 3) -> float:
     """Mean device duration (ms) of the kernel whose name holds ``kernel``,
     over ``calls`` calls of ``fn``, from the profiler's CUPTI kernel
     records: the kernel's own run, without the launch interval that each
     call timed by :func:`time_ms` also holds.  The mean is over the kernel
-    records the profiler kept (it may drop one of a run); fails if it kept
-    fewer than half."""
+    records the profiler kept (it may drop one of a run).  Each run has a
+    warm-up step, whose records are discarded, before the measured one: on
+    some hosts a profile that starts cold keeps only 6 to 9 records of 20.
+    A run that kept fewer than half is profiled again, up to ``attempts``
+    runs in all; fails if none kept half."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    found = [e for e in prof.key_averages() if kernel in e.key and e.device_type.name == "CUDA"]
-    n = sum(e.count for e in found)
-    if not calls / 2 <= n <= calls:
-        raise SystemExit(f"the profiler recorded {n} {kernel} kernels for {calls} calls")
-    return sum(e.device_time_total for e in found) / n / 1e3
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):  # the warm-up step, then the measured one
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        found = [e for e in prof.key_averages() if kernel in e.key and e.device_type.name == "CUDA"]
+        n = sum(e.count for e in found)
+        if calls / 2 <= n <= calls:
+            return sum(e.device_time_total for e in found) / n / 1e3
+        log(f"the profiler recorded {n} {kernel} kernels for {calls} calls; profiling again")
+    raise SystemExit(f"the profiler recorded fewer than {calls / 2:.0f} {kernel} kernels for {calls} calls "
+                     f"in each of {attempts} runs")
+
+
+def event_ms(fn, reps: int = 10) -> float:
+    """Time of one call of ``fn`` between CUDA events over ``reps`` calls,
+    after 3 warm-up calls: the host's launches included.  For the backward
+    passes through autograd, which are not captured in a CUDA graph."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def flash_work(q, k, lengths, causal: bool, window: int) -> tuple[int, int]:
@@ -276,6 +330,44 @@ def gating_bound(logits, k: int) -> tuple[float, str]:
     return _bound(4 * t * e + 8 * t * k, (3 + k) * t * e)
 
 
+def flash_bwd_bound(q, k, lengths, causal: bool, window: int) -> tuple[float, str, float, str]:
+    """Least time (ms) of the flash backward on these inputs: q, k, v, the
+    output, its gradient and the float32 LSE read once, dq, dk, dv written
+    once; five products of hd multiply-adds per (query, key) pair the masks
+    let through (the recomputed q·k, dO·v, and the dV, dK, dQ products), 10·hd
+    FLOPs.  (bound, by) with float32 at the SIMT rate (the kernel's route),
+    then (tc_bound, by) on the tensor cores (float32 as three TF32 passes)."""
+    import torch
+
+    b, h, s, hd = q.shape
+    _, fwd_flops = flash_work(q, k, lengths, causal, window)
+    pairs = fwd_flops // (4 * hd)
+    elt = q.element_size()
+    nbytes = elt * (3 * 2 * b * h * s * hd + 2 * 2 * b * k.shape[1] * s * hd) + 4 * b * h * s
+    flops = 10 * hd * pairs
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (3 * flops / TF32_FLOP_PER_S if q.dtype == torch.float32 else flops / BF16_FLOP_PER_S) * 1e3
+    tc = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    # The peak rate of the inputs' type: float32 outside the tensor cores, bf16 on them.
+    bound, by = _bound(nbytes, flops) if q.dtype == torch.float32 else tc
+    return bound, by, *tc
+
+
+def rmsnorm_bwd_bound(x) -> tuple[float, str]:
+    """x and dy read, dx written, the float32 scale read and dscale written
+    once; ~10 FLOPs per element (the two sums, dx, dscale's term)."""
+    t, d = x.shape
+    return _bound(3 * t * d * x.element_size() + 8 * d, 10 * t * d)
+
+
+def gating_bwd_bound(logits, k: int) -> tuple[float, str]:
+    """The logits read and their gradient written once, the (T, k) int32 ids
+    and float32 gate gradients read once; per logit the softmax again (a
+    subtraction, an exp, a division) and p·(dp − c), ~6 FLOPs."""
+    t, e = logits.shape
+    return _bound(2 * logits.element_size() * t * e + 8 * t * k, 6 * t * e)
+
+
 def _bound(nbytes: float, flops: float) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOP_PER_S * 1e3
@@ -339,7 +431,7 @@ def ptxas_report(out: str) -> list[tuple[str, str]]:
         # A type named twice is mangled the second time as a substitution
         # (S_, S0_, ...): bf16 queries over a bf16 cache read "13__nv_bfloat16S2_".
         m = re.search(r"Function properties for .*?\d([a-z_]+_kernel)I((?:f|13__nv_bfloat16|S\d*_)+)"
-                      r"((?:L[a-z]\d+E)+)", ln)
+                      r"((?:L[a-z]\d+E)*)", ln)
         if m:
             types: list[str] = []
             for t in re.findall(r"f|13__nv_bfloat16|S\d*_", m.group(2)):
@@ -500,6 +592,9 @@ def phase_kernels_vs_plain() -> dict[str, float]:
         ("internvl2 g 7 (8,14->2,256,64) f32", 8, 14, 2, 256, 64, None),
         ("internvl2 g 7: f32 q, bf16 cache (8,14->2,256,64)", 8, 14, 2, 256, 64, [256, 0, 5, 64, 250, 129, 1, 256]),
         ("musicgen g 1 bf16 (8,32->32,256,64)", 8, 32, 32, 256, 64, None),
+        # head_dim 512: xLSTM-1.3B's token path (4 query heads on 4 KV heads, float32)
+        ("xlstm hd 512 g 1 (8,4->4,256,512) f32", 8, 4, 4, 256, 512, None),
+        ("hd 512 g 1 ragged S=1000 valid_len [1000,0,3] f32", 3, 4, 4, 1000, 512, [1000, 0, 3]),
     ]
     for name, b, h, kv, s, hd, valid in decode_cases:
         # The name says the types: "f32 q, bf16 cache", else one type (bf16
@@ -538,6 +633,8 @@ def phase_kernels_vs_plain() -> dict[str, float]:
         for model in ("hymba", "internvl2", "musicgen"):
             if name.startswith(f"{model} g ") and ("bf16" in name) == (model != "internvl2"):
                 main_err[f"{model}_decode_attention"] = err
+        if name.startswith("xlstm hd 512"):
+            main_err["xlstm_decode_attention"] = err
 
     rms_cases = [
         ("main path (2048,7168) f32", 2048, 7168, f32),
@@ -613,6 +710,173 @@ def phase_kernels_vs_plain() -> dict[str, float]:
     if failures:
         raise SystemExit(f"kernels disagree with their plain versions: {failures}")
     return main_err
+
+
+# Backward kernels against autograd through the plain versions: relative
+# to the largest gradient (at least 1), since a gradient sums the same
+# products in other orders than the forward.  Flash attention in float32 to
+# F32_TOL (its SIMT float32 sums against the plain version's matrix
+# products), RMSNorm's dx and the logits' gradient to ROW_TOL (one row sum
+# in another order), RMSNorm's dscale to F32_TOL (a column sum over T rows
+# in another order); bf16 to BF16_TOL.
+def _grad_err(got, want, tol: float) -> tuple[float, bool]:
+    """Max abs error of a gradient and whether it is within ``tol``
+    relative and ``tol`` times the largest |want| (at least 1) absolute."""
+    import torch
+
+    scale = max(1.0, want.float().abs().max().item())
+    err = (got.float() - want.float()).abs().max().item() if want.numel() else 0.0
+    ok = (got.shape == want.shape and bool(torch.isfinite(got).all())
+          and bool(torch.isclose(got.float(), want.float(), rtol=tol, atol=tol * scale).all()))
+    return err, ok
+
+
+def _autograd(fn, inputs, douts):
+    """Outputs of ``fn`` on copies of ``inputs``, and the copies' gradients
+    for the outputs' gradients ``douts`` (None: no gradient)."""
+    import torch
+
+    ins = [t.detach().clone().requires_grad_(True) for t in inputs]
+    outs = fn(*ins)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    pairs = [(o, d) for o, d in zip(outs, douts) if d is not None]
+    torch.autograd.backward([o for o, _ in pairs], [d for _, d in pairs])
+    return outs, [t.grad for t in ins]
+
+
+def phase_backward_vs_plain() -> dict[str, float]:
+    """Each backward kernel, through the ``ops`` autograd Functions (forward
+    kernel, then backward kernel), against autograd through the plain
+    version on the same inputs and output gradients: flash attention at the
+    training paths' shapes (orloj_gpt, GLM-4's GQA 16:1 at S 1024, Hymba's
+    window, Arctic's group of 7) and at head sizes 16, 64, 128 and 192, with
+    lengths, an empty row, a softcap, full attention, S 1 and bf16; RMSNorm at
+    GLM-4's, Arctic's and Hymba's widths, ragged d, bf16; the gates at Arctic's
+    (2048,128) k 2 and the reduced Arctic's 16 experts, E 3 to 256, k == E,
+    ties, -inf logits, bf16.  Returns the error at each backward's main shape."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gating as gating
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rmsnorm as rms
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    f32, bf16 = torch.float32, torch.bfloat16
+    errs: dict[str, float] = {}
+    failures = []
+    flash_cases = [
+        # name, b, h, kv, s, hd, dtype, lengths, window, softcap, causal
+        ("orloj_gpt train (8,12,256,64) f32", 8, 12, 12, 256, 64, f32, None, 0, 0.0, True),
+        ("glm4 train GQA 16:1 (2,32->2,1024,128) f32", 2, 32, 2, 1024, 128, f32, None, 0, 0.0, True),
+        ("arctic GQA 7:1 (2,56->8,256,128) f32", 2, 56, 8, 256, 128, f32, None, 0, 0.0, True),
+        ("hymba reduced window 64 (2,4->2,96,64) f32", 2, 4, 2, 96, 64, f32, None, 64, 0.0, True),
+        ("hymba window 1024 (1,25->5,1100,64) f32", 1, 25, 5, 1100, 64, f32, None, 1024, 0.0, True),
+        ("hd 16 lengths [24,9,1,0] (4,4,24,16) f32", 4, 4, 4, 24, 16, f32, [24, 9, 1, 0], 0, 0.0, True),
+        ("hd 32 full attention lengths [64,10] (2,4,64,32) f32", 2, 4, 4, 64, 32, f32, [64, 10], 0, 0.0,
+         False),
+        ("hd 192 ragged S=300 lengths [300,0] (2,8->2,300,192) f32", 2, 8, 2, 300, 192, f32, [300, 0], 0,
+         0.0, True),
+        ("softcap 2 lengths [256,100] (2,8->2,256,64) f32", 2, 8, 2, 256, 64, f32, [256, 100], 0, 2.0, True),
+        ("softcap 2 hd 128 window 96 (2,14->2,256,128) f32", 2, 14, 2, 256, 128, f32, None, 96, 2.0, True),
+        ("S=1 (3,4->2,1,64) f32", 3, 4, 2, 1, 64, f32, None, 0, 0.0, True),
+        ("bf16 (8,12,256,64)", 8, 12, 12, 256, 64, bf16, None, 0, 0.0, True),
+        ("bf16 hd 128 GQA 7:1 lengths [256,131] window 96", 2, 14, 2, 256, 128, bf16, [256, 131], 96, 0.0,
+         True),
+        ("bf16 hd 192 (2,8->2,256,192)", 2, 8, 2, 256, 192, bf16, None, 0, 0.0, True),
+    ]
+    for name, b, h, kv, s, hd, dt, lens, window, cap, causal in flash_cases:
+        q = _randn(gen, (b, h, s, hd), dt)
+        k, v = (_randn(gen, (b, kv, s, hd), dt) for _ in range(2))
+        dout = _randn(gen, (b, h, s, hd), dt)
+        lt = None if lens is None else torch.tensor(lens, dtype=torch.int32, device="cuda")
+        kw = dict(causal=causal, window=window, softcap=cap)
+        before = fa.backward_launches
+        (_,), got = _autograd(lambda *t: ops.flash_attention(*t, lt, **kw), (q, k, v), (dout,))
+        launched = fa.backward_launches - before
+        (_,), want = _autograd(lambda *t: ref.flash_attention_ref(*t, lengths=lt, **kw), (q, k, v), (dout,))
+        torch.cuda.synchronize()
+        tol = BF16_TOL if dt == bf16 else F32_TOL
+        res = [_grad_err(a, w, tol) for a, w in zip(got, want)]
+        err = max(e for e, _ in res)
+        ok = all(o for _, o in res) and launched == 1 and all(a.dtype == dt for a in got)
+        if lens is not None and 0 in lens:  # a row with no valid key: zero gradients, not NaN
+            ok = ok and bool((got[0][lens.index(0)] == 0).all())
+        log(f"backward vs plain: flash_attention_bwd {name}: dq/dk/dv max_abs_err "
+            f"{', '.join(f'{e:.3e}' for e, _ in res)} (tol {tol} of the largest) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"flash_attention_bwd {name}")
+        if name.startswith("orloj_gpt train"):
+            errs["flash_attention_bwd"] = err
+        if name.startswith("glm4 train"):
+            errs["glm4_flash_attention_bwd"] = err
+
+    rms_cases = [
+        ("glm4 train (2048,4096) f32", 2048, 4096, f32),
+        ("arctic (2048,7168) f32", 2048, 7168, f32),
+        ("hymba (2048,1600) f32", 2048, 1600, f32),
+        ("hymba reduced (192,256) f32", 192, 256, f32),
+        ("ragged (33,130) f32", 33, 130, f32),
+        ("T=1 (1,4096) f32", 1, 4096, f32),
+        ("bf16 (2048,4096)", 2048, 4096, bf16),
+    ]
+    for name, t, d, dt in rms_cases:
+        x = _randn(gen, (t, d), dt) * 3
+        scale = _randn(gen, (d,), f32)
+        dy = _randn(gen, (t, d), dt)
+        before = rms.backward_launches
+        _, (dx, ds) = _autograd(lambda a, w: ops.rmsnorm(a, w, eps=1e-5), (x, scale), (dy,))
+        launched = rms.backward_launches - before
+        _, (wdx, wds) = _autograd(lambda a, w: ref.rmsnorm_ref(a, w, 1e-5), (x, scale), (dy,))
+        torch.cuda.synchronize()
+        ex, okx = _grad_err(dx, wdx, BF16_TOL if dt == bf16 else ROW_TOL)
+        es, oks = _grad_err(ds, wds, BF16_TOL if dt == bf16 else F32_TOL)
+        ok = okx and oks and launched == 1 and dx.dtype == dt and ds.dtype == f32
+        log(f"backward vs plain: rmsnorm_bwd {name}: dx max_abs_err {ex:.3e} (tol "
+            f"{BF16_TOL if dt == bf16 else ROW_TOL}), dscale {es:.3e} (tol {BF16_TOL if dt == bf16 else F32_TOL}) "
+            f"of the largest {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"rmsnorm_bwd {name}")
+        if name.startswith("glm4 train"):
+            errs["rmsnorm_bwd"] = max(ex, es)
+
+    tie = torch.zeros((6, 16), device="cuda")
+    tie[1] = 3.0
+    tie[2, [3, 9, 12]] = 5.0
+    tie[4] = torch.arange(16, device="cuda") % 4
+    neg_inf = _randn(gen, (4, 16), f32)
+    neg_inf[0, 1:] = -math.inf
+    neg_inf[1, ::2] = -math.inf
+    gating_cases = [
+        ("arctic (2048,128) k 2", _randn(gen, (2048, 128), f32) * 2, 2),
+        ("arctic reduced 16 experts (192,16) k 2", _randn(gen, (192, 16), f32) * 2, 2),
+        ("E=3 (64,3) k 2", _randn(gen, (64, 3), f32) * 2, 2),
+        ("E=130 (64,130) k 4", _randn(gen, (64, 130), f32) * 2, 4),
+        ("E=256 (2048,256) k 2", _randn(gen, (2048, 256), f32) * 2, 2),
+        ("k == E (64,8) k 8", _randn(gen, (64, 8), f32) * 2, 8),
+        ("ties (6,16) k 4", tie, 4),
+        ("-inf logits (4,16) k 4", neg_inf, 4),
+        ("bf16 (512,128) k 2", _randn(gen, (512, 128), bf16) * 2, 2),
+    ]
+    for name, logits, k in gating_cases:
+        dg = _randn(gen, (logits.shape[0], k), f32)
+        before = gating.backward_launches
+        (_, ids), (got,) = _autograd(lambda x: ops.moe_gating(x, k), (logits,), (dg, None))
+        launched = gating.backward_launches - before
+        (_, wids), (want,) = _autograd(lambda x: ref.moe_gating_ref(x, k), (logits,), (dg, None))
+        torch.cuda.synchronize()
+        tol = BF16_TOL if logits.dtype == bf16 else ROW_TOL
+        err, ok = _grad_err(got, want, tol)
+        ok = ok and launched == 1 and torch.equal(ids, wids) and got.dtype == logits.dtype
+        log(f"backward vs plain: moe_gating_bwd {name}: dlogits max_abs_err {err:.3e} (tol {tol} of the "
+            f"largest), ids equal {torch.equal(ids, wids)} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"moe_gating_bwd {name}")
+        if name.startswith("arctic (2048"):
+            errs["moe_gating_bwd"] = err
+    if failures:
+        raise SystemExit(f"backward kernels disagree with autograd through their plain versions: {failures}")
+    return errs
 
 
 def phase_serve(engine, ecfg, label: str, must_launch: tuple[str, ...]) -> dict[str, int]:
@@ -810,18 +1074,22 @@ def _to_cpu(tree):
     return tree.cpu()
 
 
-def phase_tokens(engine, label: str) -> dict[str, int]:
+def phase_tokens(engine, label: str, *, hold: bool = False) -> dict[str, int]:
+    """Token requests through continuous batching on the decode kernel;
+    with ``hold``, every decode call of the path is held against its plain
+    version on its own inputs as it returns."""
     from repro_torch.core.tokensched import LengthAwareTokenScheduler, TokenSchedConfig
     from repro_torch.kernels import ops
 
     ops.reset_launch_counts()
-    dec = engine.decode_executor(max_batch=8, max_cache=256)
-    reqs = engine.make_token_requests(N_TOKEN_REQUESTS, dec, seed=0)
-    step_ms = dec.calibrate()
-    # Scheduler SLOs far above the requests' own: this phase checks that
-    # every token is served; the requests' SLOs still decide the finish rate.
-    cfg = TokenSchedConfig(max_batch=8, ttft_slo_ms=1e9, tpot_slo_ms=1e9, d0=step_ms, d1=0.0)
-    res = engine.serve_tokens(reqs, LengthAwareTokenScheduler(cfg), dec)
+    with _kernel_log() if hold else contextlib.nullcontext([]) as calls:
+        dec = engine.decode_executor(max_batch=8, max_cache=256)
+        reqs = engine.make_token_requests(N_TOKEN_REQUESTS, dec, seed=0)
+        step_ms = dec.calibrate()
+        # Scheduler SLOs far above the requests' own: this phase checks that
+        # every token is served; the requests' SLOs still decide the finish rate.
+        cfg = TokenSchedConfig(max_batch=8, ttft_slo_ms=1e9, tpot_slo_ms=1e9, d0=step_ms, d1=0.0)
+        res = engine.serve_tokens(reqs, LengthAwareTokenScheduler(cfg), dec)
     counts = ops.launch_counts()
     done = sum(r.tokens_done for r in reqs)
     want = sum(r.out_tokens for r in reqs)
@@ -833,6 +1101,8 @@ def phase_tokens(engine, label: str) -> dict[str, int]:
         raise SystemExit(f"{label} tokens: {done} of {want} tokens served")
     if counts["decode_attention"] <= 0:
         raise SystemExit(f"{label} tokens: the decode path launched no decode_attention kernel")
+    if hold:
+        _hold_path_calls([c for c in calls if c[0] == "decode_attention"], f"{label} tokens")
     return counts
 
 
@@ -1165,6 +1435,130 @@ def _decode_entry(gen, b, h, kv, s, hd, q_dtype, cache_dtype) -> dict:
     return e
 
 
+def _flash_lse_entry(gen) -> dict:
+    """The flash forward at orloj_gpt's (8,12,256,64) float32 without and
+    with its LSE output, in turns (off, on, on, off), by graph replay."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = (_randn(gen, (8, 12, 256, 64), torch.float32) for _ in range(3))
+    off = lambda: fa.flash_attention_cuda(q, k, v)  # noqa: E731
+    on = lambda: fa.flash_attention_cuda(q, k, v, return_lse=True)  # noqa: E731
+    times = [time_ms(fn) for fn in (off, on, on, off)]
+    e = {"lse_off_ms": [times[0], times[3]], "lse_on_ms": [times[1], times[2]]}
+    log(f"flash (8,12,256,64) f32 forward, LSE off {times[0]:.6f} / {times[3]:.6f} ms, LSE on "
+        f"{times[1]:.6f} / {times[2]:.6f} ms (in turns off, on, on, off)")
+    return e
+
+
+def _flash_bwd_entry(gen, b, h, kv, s, hd, dtype) -> dict:
+    """The flash backward at one causal shape: the kernel by graph replay
+    (``ms``) and between CUDA events (``event_ms``); autograd through the
+    plain version (``plain_ms``) and SDPA's backward on the same q, dO and
+    the KV heads repeated (``library_ms``), both between CUDA events."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    q = _randn(gen, (b, h, s, hd), dtype)
+    k, v = (_randn(gen, (b, kv, s, hd), dtype) for _ in range(2))
+    dout = _randn(gen, (b, h, s, hd), dtype)
+    out, lse = fa.flash_attention_cuda(q, k, v, return_lse=True)
+    kernel = lambda: fa.flash_attention_backward_cuda(q, k, v, out, dout, lse)  # noqa: E731
+    ins = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    plain_out = ref.flash_attention_ref(*ins)
+    lib_ins = [t.detach().clone().requires_grad_(True)
+               for t in (q, k.repeat_interleave(h // kv, 1), v.repeat_interleave(h // kv, 1))]
+    lib_out = F.scaled_dot_product_attention(*lib_ins, is_causal=True)
+    bound, by, tc_bound, tc_by = flash_bwd_bound(q, k, None, True, 0)
+    e = {
+        "ms": time_ms(kernel), "event_ms": event_ms(kernel),
+        "plain_ms": event_ms(lambda: torch.autograd.grad(plain_out, ins, dout, retain_graph=True)),
+        "bound_ms": bound, "bound_by": by,
+        "library_ms": event_ms(lambda: torch.autograd.grad(lib_out, lib_ins, dout, retain_graph=True)),
+        "tc_bound_ms": tc_bound, "tc_bound_by": tc_by,
+    }
+    log(f"flash backward ({b},{h}->{kv},{s},{hd}) {str(dtype)[6:]}, ratios in this call: /SDPA backward "
+        f"{e['event_ms'] / e['library_ms']:.3f} (both between events), /plain {e['event_ms'] / e['plain_ms']:.3f}, "
+        f"/bound {e['ms'] / bound:.3f} (bound {bound:.6f} ms, {by}), /tc_bound {e['ms'] / tc_bound:.3f} "
+        f"(tc_bound {tc_bound:.6f} ms, {tc_by}); {e['ms']:.6f} ms by graph replay, {e['event_ms']:.6f} "
+        f"between events")
+    return e
+
+
+def _backward_entries(gen, counts: dict[str, int], errs: dict[str, float]) -> list[dict]:
+    """The three backward kernels' entries: flash at full-width orloj_gpt's
+    training shape (8,12,256,64) float32 (``glm4``: GLM-4's (2,32->2,1024,128)),
+    RMSNorm at GLM-4's (2048, 4096) and the gates at Arctic's (2048,128) k 2."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import moe_gating as gating
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rms
+
+    f32 = torch.float32
+    flash = {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:88",
+        "launches": counts["flash_attention_bwd"], "max_abs_err": errs["flash_attention_bwd"],
+        **_flash_bwd_entry(gen, 8, 12, 12, 256, 64, f32),
+        "glm4": {"max_abs_err": errs["glm4_flash_attention_bwd"],
+                 **_flash_bwd_entry(gen, 2, 32, 2, 1024, 128, f32)},
+    }
+
+    x = _randn(gen, (2048, 4096), f32)
+    scale, dy = _randn(gen, (4096,), f32), _randn(gen, (2048, 4096), f32)
+    ins = [t.detach().clone().requires_grad_(True) for t in (x, scale)]
+    plain_out = ref.rmsnorm_ref(*ins, 1e-5)
+    lib_out = F.rms_norm(ins[0], (4096,), weight=ins[1], eps=1e-5)
+    bound, by = rmsnorm_bwd_bound(x)
+    kernel = lambda: rms.rmsnorm_backward_cuda(x, scale, dy, eps=1e-5)  # noqa: E731
+    rmsnorm = {
+        "name": "rmsnorm_bwd", "route": "cuda", "source": "src/repro_torch/kernels/csrc/rmsnorm_bwd.cu",
+        "replaces": "src/repro/kernels/rmsnorm.py:24",
+        "launches": counts["rmsnorm_bwd"], "max_abs_err": errs["rmsnorm_bwd"],
+        "ms": time_ms(kernel), "event_ms": event_ms(kernel),
+        "plain_ms": event_ms(lambda: torch.autograd.grad(plain_out, ins, dy, retain_graph=True)),
+        "bound_ms": bound, "bound_by": by,
+        "library_ms": event_ms(lambda: torch.autograd.grad(lib_out, ins, dy, retain_graph=True)),
+    }
+    log(f"rmsnorm backward (2048,4096) f32: {rmsnorm['ms']:.6f} ms by graph replay, {rmsnorm['event_ms']:.6f} "
+        f"between events; /bound {rmsnorm['ms'] / bound:.3f} (bound {bound:.6f} ms, {by}); /F.rms_norm "
+        f"backward {rmsnorm['event_ms'] / rmsnorm['library_ms']:.3f}, /plain "
+        f"{rmsnorm['event_ms'] / rmsnorm['plain_ms']:.3f} (between events)")
+
+    logits = _randn(gen, (2048, 128), f32) * 2
+    _, ids = gating.moe_gating_cuda(logits, 2)
+    dg = _randn(gen, (2048, 2), f32)
+    lg = logits.detach().clone().requires_grad_(True)
+    plain_gates = ref.moe_gating_ref(lg, 2)[0]
+    lc = logits.detach().clone().requires_grad_(True)
+    top, _ = torch.topk(torch.softmax(lc, dim=-1), 2, dim=-1)
+    comp_gates = top / top.sum(-1, keepdim=True).clamp_min(1e-9)
+    bound, by = gating_bwd_bound(logits, 2)
+    kernel = lambda: gating.moe_gating_backward_cuda(logits, ids, dg)  # noqa: E731
+    moe = {
+        "name": "moe_gating_bwd", "route": "cuda", "source": "src/repro_torch/kernels/csrc/moe_gating_bwd.cu",
+        "replaces": "src/repro/kernels/moe_gating.py:44",
+        "launches": counts["moe_gating_bwd"], "max_abs_err": errs["moe_gating_bwd"],
+        "ms": time_ms(kernel), "event_ms": event_ms(kernel),
+        "own_ms": own_ms(kernel, "moe_gating_bwd_kernel"),
+        "plain_ms": event_ms(lambda: torch.autograd.grad(plain_gates, lg, dg, retain_graph=True)),
+        "bound_ms": bound, "bound_by": by, "library_ms": None,
+        "composite_ms": event_ms(lambda: torch.autograd.grad(comp_gates, lc, dg, retain_graph=True)),
+    }
+    log(f"moe_gating backward (2048,128) k 2 f32: {moe['ms']:.6f} ms by graph replay, own duration "
+        f"{moe['own_ms']:.6f} ms, {moe['event_ms']:.6f} between events; bound {bound:.6f} ms ({by}); "
+        f"composite softmax/topk/renormalise backward {moe['composite_ms']:.6f} ms, plain "
+        f"{moe['plain_ms']:.6f} ms (between events)")
+    return [flash, rmsnorm, moe]
+
+
 def phase_kernel_line(counts: dict[str, int], errs: dict[str, float]) -> dict:
     """One entry per kernel.  Flash and decode are timed at orloj_gpt's
     (8,12,256,64) as before, under ``arctic`` at Arctic's (8,56->8,256,128),
@@ -1219,7 +1613,10 @@ def phase_kernel_line(counts: dict[str, int], errs: dict[str, float]) -> dict:
                       **_decode_entry(gen, 8, 14, 2, 256, 64, torch.float32, torch.float32)},
         "musicgen": {"max_abs_err": errs["musicgen_decode_attention"],
                      **_decode_entry(gen, 8, 32, 32, 256, 64, torch.bfloat16, torch.bfloat16)},
+        "xlstm": {"max_abs_err": errs["xlstm_decode_attention"],
+                  **_decode_entry(gen, 8, 4, 4, 256, 512, torch.float32, torch.float32)},
     }
+    flash["lse"] = _flash_lse_entry(gen)
 
     x = _randn(gen, (2048, 7168), torch.float32)
     scale = _randn(gen, (7168,), torch.float32)
@@ -1277,7 +1674,7 @@ def phase_kernel_line(counts: dict[str, int], errs: dict[str, float]) -> dict:
         "bound_ms": by_t[-1]["bound_ms"], "bound_by": by_t[-1]["bound_by"],
         "library_ms": None, "composite_ms": time_ms(composite), "by_T": by_t,
     }
-    entries = [flash, decode, rmsnorm, moe_gating]
+    entries = [flash, decode, rmsnorm, moe_gating, *_backward_entries(gen, counts, errs)]
     for e in entries:  # the decode ≡ forward paths' own calls, held against the plain versions
         e["path_calls_held"], e["path_max_abs_err"] = PATH_HELD.get(e["name"], (0, None))
     return {"kernels": entries}
@@ -1556,16 +1953,20 @@ def phase_logits(model, params, label: str, batch: dict, dtype=None) -> dict[str
     return counts
 
 
-def run_xlstm() -> list[dict[str, int]]:
+def run_xlstm(ecfg) -> list[dict[str, int]]:
     """The recurrent model: xLSTM-1.3B at full width and depth (48 blocks, d
-    2048, 4 heads of 512, every 8th block an sLSTM), which launches none of
-    the four kernels: decode ≡ forward, and the (8, 256) forward's seconds,
-    device operations and idle share, beside one sLSTM block's."""
+    2048, 4 heads of 512, every 8th block an sLSTM), whose model path
+    launches none of the kernels: decode ≡ forward, and the (8, 256)
+    forward's seconds, device operations and idle share, beside one sLSTM
+    block's.  Its token path prices a decode step at d / n_heads = 512 (4
+    query heads on 4 KV heads): served through the engine, every decode
+    call held against the plain version."""
     import torch
 
     from repro_torch.configs.xlstm_1_3b import CONFIG
     from repro_torch.kernels import ops
     from repro_torch.models import Model, ssm
+    from repro_torch.serving.engine import TorchServingEngine
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1577,8 +1978,11 @@ def run_xlstm() -> list[dict[str, int]]:
         f"{CONFIG.n_heads} heads of {CONFIG.d_model // CONFIG.n_heads}, one sLSTM block in every "
         f"{CONFIG.slstm_every}, vocab {CONFIG.vocab_size}; {model.param_count(params)} params, {_nbytes(params)} bytes "
         f"of float32 weights; peak {torch.cuda.max_memory_allocated()} bytes after init "
-        f"(built in {time.perf_counter() - t0:.1f} s); it launches none of the four kernels")
+        f"(built in {time.perf_counter() - t0:.1f} s); its model path launches none of the kernels")
     windows = [phase_decode_matches_forward(model, params, "xlstm", must_launch=())]
+    engine = TorchServingEngine(CONFIG, ecfg, seed=0, params=params)
+    windows.append(phase_tokens(engine, "xlstm (decode at head size 512)", hold=True))
+    del engine
     tokens = torch.ones((8, 256), dtype=torch.long, device="cuda")
 
     def forward():
@@ -1782,6 +2186,217 @@ def run_engine_smoke() -> list[dict[str, int]]:
     return windows
 
 
+# ------------------------------------------------------------ training
+TRAIN_T1 = dict(steps=50, batch=8, seq=256)  # full-width orloj_gpt
+GLM_TRAIN_LAYERS = 4  # GLM-4-9B at full width: 2.06 G parameters, 33 GB with grads and moments
+TRAIN_T2 = dict(steps=5, batch=2, seq=1024)  # S 1024 = 2 loss chunks of 512
+
+
+def _train_phase(cfg, label: str, must_launch: tuple[str, ...], **kw) -> tuple[dict[str, int], dict]:
+    """``repro_torch.launch.train.train`` on the card (the CLI's body), the
+    launch counters set to 0 just before and read just after; then its
+    losses, ms/step (median of the steps after the first), the corpus's
+    host share of a step, peak memory, each kernel's launches, and one more
+    step under the profiler (its batch drawn first): device busy time and
+    idle share.  Fails on a non-finite loss or a kernel of ``must_launch``
+    that was not launched."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train
+
+    _release()
+    torch.cuda.reset_peak_memory_stats()
+    rec: dict = {}
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = train(cfg, device="cuda", record=rec, **kw)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    step_ms, data_ms = rec["step_ms"], rec["data_ms"]
+    steady = sorted(step_ms[1:] or step_ms)
+    share = sum(data_ms[1:] or data_ms) / sum(step_ms[1:] or step_ms)
+    log(f"{label}: {len(losses)} steps at (batch {kw['batch']}, seq {kw['seq']}) in {secs:.1f} s: loss "
+        f"{losses[0]:.4f} → {losses[-1]:.4f}; ms/step median {steady[len(steady) // 2]:.2f} (min "
+        f"{steady[0]:.2f}, max {steady[-1]:.2f}; first step {step_ms[0]:.2f}) on the host's clock, of which "
+        f"the corpus (host) {share:.4f} of the steps' time (median {sorted(data_ms)[len(data_ms) // 2]:.2f} "
+        f"ms a batch); peak memory {peak} bytes; launches={counts}")
+    if not all(math.isfinite(x) for x in losses):
+        raise SystemExit(f"{label}: a loss is not finite: {losses}")
+    for name in must_launch:
+        if counts[name] <= 0:
+            raise SystemExit(f"{label}: the training path launched no {name} kernel")
+    batch = next(rec["iterator"])
+    params, opt_state = rec["params"], rec["opt_state"]
+    events = _profile(lambda: rec["train_step"](params, opt_state, batch), label, "one train step")
+    busy = sum(e.device_time_total for e in events) / 1e3
+    info = dict(losses=losses, step_ms=steady[len(steady) // 2], data_share=share, peak=peak,
+                busy_ms=busy, first=float(np.mean(losses[: max(len(losses) // 5, 1)])),
+                last=float(np.mean(losses[-max(len(losses) // 5, 1):])))
+    rec.clear()
+    del params, opt_state, batch
+    _release()
+    return counts, info
+
+
+def run_train_orloj_gpt() -> list[dict[str, int]]:
+    """T1: full-width orloj_gpt (12 layers, d 768, 12 heads of 64, d_ff 3072,
+    vocab 32000, ~124 M parameters) trained 50 steps at (8, 256) through the
+    flash forward and backward kernels (layernorm: no RMSNorm); the loss
+    must improve."""
+    from repro_torch.configs.orloj_gpt import CONFIG
+
+    counts, info = _train_phase(CONFIG, "train orloj_gpt (T1)", ("flash_attention", "flash_attention_bwd"),
+                                **TRAIN_T1)
+    log(f"train orloj_gpt (T1): loss {info['first']:.4f} → {info['last']:.4f} "
+        f"({'improved' if info['last'] < info['first'] else 'NOT improved'}); flash launches "
+        f"{counts['flash_attention']} forward and {counts['flash_attention_bwd']} backward for "
+        f"{CONFIG.n_layers} layers × {TRAIN_T1['steps']} steps")
+    if not info["last"] < info["first"]:
+        raise SystemExit("train orloj_gpt (T1): the loss did not improve")
+    return [counts]
+
+
+def run_train_glm4() -> list[dict[str, int]]:
+    """T2: GLM-4-9B at full width (d 4096, 32 query heads on 2 KV heads of
+    128, d_ff 13696, vocab 151552) cut to GLM_TRAIN_LAYERS layers, with its
+    config's recomputation and loss chunks of 512: 5 steps at (2, 1024).
+    RMSNorm forward and backward, flash at GQA 16:1; recomputation runs every
+    block's forward again in the backward, so the forwards launch twice."""
+    import torch
+
+    from repro_torch.configs.glm4_9b import CONFIG
+
+    cfg = dataclasses.replace(CONFIG, n_layers=GLM_TRAIN_LAYERS)
+    chunks = -(-TRAIN_T2["seq"] // cfg.loss_chunk)
+    log(f"train glm4 (T2): {cfg.name} cut to {cfg.n_layers} of {CONFIG.n_layers} layers at full width, "
+        f"remat={cfg.remat} ({cfg.remat_policy}), loss_chunk {cfg.loss_chunk}: {chunks} chunks of the "
+        f"sequence; n_params_estimate {cfg.n_params_estimate}")
+    counts, info = _train_phase(cfg, "train glm4 (T2)", ("flash_attention", "flash_attention_bwd", "rmsnorm",
+                                                         "rmsnorm_bwd"), **TRAIN_T2)
+    per_step = {k: v / TRAIN_T2["steps"] for k, v in counts.items() if v}
+    log(f"train glm4 (T2): launches a step {per_step}: flash forward {counts['flash_attention']} = 2 × "
+        f"{counts['flash_attention_bwd']} backward (recomputation); peak {info['peak']} bytes "
+        f"({info['peak'] / 2**30:.2f} GiB) of {torch.cuda.get_device_properties(0).total_memory} on the card")
+    if counts["flash_attention"] != 2 * counts["flash_attention_bwd"]:
+        raise SystemExit("train glm4 (T2): recomputation did not run each block's forward twice")
+    return [counts]
+
+
+def _train_step_pair(cfg, label: str, rows: int, seq: int, lr: float = 1e-3) -> dict[str, int]:
+    """One train step (loss, gradients, one AdamW update) of the same
+    weights and batch on the card and on the CPU.  Held: the loss to 1e-4
+    relative; the global gradient norm to 1e-4 relative; every gradient leaf
+    to 1e-3 of its largest |g| (float32 on both sides, the kernels summing
+    in other orders); the parameters after the step, which moves each by
+    lr·(g/(|g|+eps) + wd·p): to 1e-5 where the CPU's |g| is above 1e-2 of its
+    leaf's largest (the step's sign is settled there), and within 2·lr
+    elsewhere.  Returns the card step's launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.optim.adamw import leaves
+
+    rng = np.random.default_rng(4)
+    tokens = rng.integers(0, cfg.vocab_size, size=(rows, seq))
+    labels = rng.integers(0, cfg.vocab_size, size=(rows, seq))
+    labels[0, :5] = -1
+    drawn = Model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(4))
+    side = {}
+    counts = {}
+    for dev in ("cuda", "cpu"):
+        model = Model(cfg, device=dev)
+        params = _tree_copy(drawn, dev)
+        flat = leaves(params)
+        for t in flat:
+            t.requires_grad_(True)
+        batch = {"tokens": torch.from_numpy(tokens).to(dev), "labels": torch.from_numpy(labels).to(dev)}
+        opt = AdamWConfig(lr=lr, total_steps=10, warmup_steps=1)
+        ops.reset_launch_counts()
+        # make_train_step's body, with the gradients kept for the comparison
+        loss = model.loss(params, batch)
+        grads = torch.autograd.grad(loss, flat, allow_unused=True, materialize_grads=True)
+        adamw_update(opt, params, list(grads), adamw_init(params))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+        gnorm = float(torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads)))
+        side[dev] = (float(loss.detach()), gnorm, [g.cpu() for g in grads], [t.detach().cpu() for t in flat])
+        del model, params, flat, grads
+    del drawn
+    _release()
+    (l1, n1, g1, p1), (l2, n2, g2, p2) = side["cuda"], side["cpu"]
+    grad_err = max(((a - b).abs().max() / max(1.0, b.abs().max().item())).item() for a, b in zip(g1, g2))
+    settled_err, loose_err, n_settled, n_all = 0.0, 0.0, 0, 0
+    for a, b, g in zip(p1, p2, g2):
+        settled = g.abs() > 1e-2 * g.abs().max()
+        d = (a - b).abs()
+        if settled.any():
+            settled_err = max(settled_err, (d[settled] / (1 + b.abs()[settled])).max().item())
+        loose_err = max(loose_err, d.max().item())
+        n_settled += int(settled.sum())
+        n_all += settled.numel()
+    ok = (abs(l1 - l2) <= 1e-4 * abs(l2) and abs(n1 - n2) <= 1e-4 * abs(n2) and grad_err <= 1e-3
+          and settled_err <= 1e-5 and loose_err <= 2 * lr + 1e-6)
+    log(f"{label}: one train step at ({rows}, {seq}), card vs CPU: loss {l1:.6f} vs {l2:.6f}, gradient "
+        f"norm {n1:.6f} vs {n2:.6f}, gradient leaves max err {grad_err:.3e} of the leaf's largest (tol "
+        f"1e-3); parameters after the AdamW step: {n_settled} of {n_all} with a settled sign, max err "
+        f"{settled_err:.3e} (tol 1e-5), all within {loose_err:.3e} (tol 2·lr = {2 * lr}); card launches "
+        f"{ {k: v for k, v in counts.items() if v} } {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{label}: the train step on the card disagrees with the CPU's")
+    return counts
+
+
+def _tree_copy(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_copy(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_copy(v, device) for v in tree]
+    return tree.detach().to(device, copy=True)
+
+
+def run_train_card_vs_cpu() -> list[dict[str, int]]:
+    """T3: one train step card against CPU at GLM-4-9B's widths cut to 1
+    layer and a 512-word vocabulary, and at full-width orloj_gpt.  T4: the
+    same at Arctic ``.reduced(n_experts=16)`` (the gates' backward through the
+    MoE block) and Hymba ``.reduced()`` (window 64 < S 96: the windowed
+    flash backward)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.glm4_9b import CONFIG as GLM
+    from repro_torch.configs.orloj_gpt import CONFIG as GPT
+
+    need = {
+        "glm4": ("flash_attention_bwd", "rmsnorm_bwd"),
+        "orloj_gpt": ("flash_attention_bwd",),
+        "arctic": ("flash_attention_bwd", "rmsnorm_bwd", "moe_gating_bwd"),
+        "hymba": ("flash_attention_bwd", "rmsnorm_bwd"),
+    }
+    runs = [
+        ("glm4", dataclasses.replace(GLM, n_layers=1, vocab_size=512), 2, 64,
+         "train glm4 card vs CPU (T3: 1 layer at full width, vocab 512)"),
+        ("orloj_gpt", GPT, 2, 64, "train orloj_gpt card vs CPU (T3: full width)"),
+        ("arctic", get_config("arctic_480b").reduced(n_experts=16), 2, 96,
+         "train arctic card vs CPU (T4: reduced, 16 experts)"),
+        ("hymba", get_config("hymba_1_5b").reduced(), 2, 96,
+         "train hymba card vs CPU (T4: reduced, window 64 < S 96)"),
+    ]
+    windows = []
+    for key, cfg, rows, seq, label in runs:
+        counts = _train_step_pair(cfg, label, rows, seq)
+        for name in need[key]:
+            if counts[name] <= 0:
+                raise SystemExit(f"{label}: no {name} kernel was launched")
+        windows.append(counts)
+    return windows
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1817,13 +2432,16 @@ def main() -> int:
     line = timed("card", phase_card)
     timed("build", phase_build)
     errs = timed("kernels vs plain", phase_kernels_vs_plain)
+    errs.update(timed("backward vs plain", phase_backward_vs_plain))
 
     ecfg = EngineConfig()
     windows = (timed("orloj_gpt", run_orloj_gpt, ecfg) + timed("arctic", run_arctic, ecfg)
                + timed("glm4", run_glm4) + timed("nemotron", run_nemotron)
-               + timed("hymba", run_hymba, ecfg) + timed("xlstm", run_xlstm)
+               + timed("hymba", run_hymba, ecfg) + timed("xlstm", run_xlstm, ecfg)
                + timed("internvl2", run_internvl2) + timed("musicgen", run_musicgen)
-               + timed("engine-smoke", run_engine_smoke))
+               + timed("engine-smoke", run_engine_smoke)
+               + timed("train orloj_gpt", run_train_orloj_gpt) + timed("train glm4", run_train_glm4)
+               + timed("train card vs CPU", run_train_card_vs_cpu))
     counts = {name: sum(w[name] for w in windows) for name in _build.KERNELS}
 
     kernels = timed("kernel line", phase_kernel_line, counts, errs)

@@ -10,9 +10,13 @@ once, one ``nvcc`` process per source, all started together.
 Nothing here runs at import time: the CPU tests import every module of the
 package on hosts without ``nvcc``.
 
-:func:`refuse_autograd` is the kernels' shared guard: none has a backward
-yet, so a launch on inputs that need a gradient raises instead of handing
-back a tensor that carries no graph.
+:func:`refuse_autograd` is the raw launchers' shared guard: a launcher
+writes into a fresh tensor that autograd does not track, so a launch on
+inputs that need a gradient raises instead of handing back a tensor that
+carries no graph.  :mod:`.ops` differentiates flash attention, RMSNorm and
+the gates through ``torch.autograd.Function`` subclasses whose forwards launch
+under no_grad and whose backwards are the ``*_bwd`` kernels; the decode
+kernel has no backward.
 """
 
 from __future__ import annotations
@@ -29,10 +33,13 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-KERNELS = ("flash_attention", "decode_attention", "rmsnorm", "moe_gating")
+# The four forwards, each the counterpart of a Pallas TPU kernel, and the
+# backwards of the three that training differentiates through.
+KERNELS = ("flash_attention", "decode_attention", "rmsnorm", "moe_gating",
+           "flash_attention_bwd", "rmsnorm_bwd", "moe_gating_bwd")
 # --split-compile=0 runs the device optimisations of one source on every
-# core: the attention sources instantiate 40 and 120 kernels (head sizes
-# 16 to 192, both softcap flags), and split they build in about half the time.
+# core: the attention sources instantiate 40 and 121 kernels (head sizes
+# 16 to 512, both softcap flags), and split they build in about half the time.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -121,15 +128,21 @@ def build_all(names: tuple[str, ...] = KERNELS) -> dict[str, str]:
         return logs
 
 
+def needs_grad(*tensors) -> bool:
+    """Whether grad mode is on and any of ``tensors`` requires grad."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
 def refuse_autograd(name: str, *tensors) -> None:
     """Raise when grad mode is on and any of ``tensors`` requires grad: the
     kernel writes into a fresh tensor that autograd does not track, so its
     output would silently cut every gradient through it."""
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+    if needs_grad(*tensors):
         raise RuntimeError(
-            f"{name}: the CUDA kernel has no backward yet, and an input requires grad; "
-            "run it under torch.no_grad() or differentiate on the CPU, whose plain "
-            "version autograd follows"
+            f"{name}: the raw CUDA launcher carries no backward, and an input requires "
+            "grad; call it under torch.no_grad(), or go through repro_torch.kernels.ops, "
+            "which differentiates flash attention, rmsnorm and the gates through their "
+            "backward kernels (the decode kernel has no backward)"
         )
 
 

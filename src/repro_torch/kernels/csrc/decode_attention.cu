@@ -48,6 +48,7 @@
 #include <algorithm>
 #include <cmath>
 #include <cstddef>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -240,12 +241,15 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
         const int u = u0 + sub;
         const T* vr = v_t + u * LD + dim0;
         float vx[DPL];
-        if constexpr (DPL == 4) {
-          const float4 v4 = load4(vr);
-          vx[0] = v4.x;
-          vx[1] = v4.y;
-          vx[2] = v4.z;
-          vx[3] = v4.w;
+        if constexpr (DPL % 4 == 0) {  // hd 128 (4 dims a lane) and 512 (16)
+#pragma unroll
+          for (int e = 0; e < DPL; e += 4) {
+            const float4 v4 = load4(vr + e);
+            vx[e] = v4.x;
+            vx[e + 1] = v4.y;
+            vx[e + 2] = v4.z;
+            vx[e + 3] = v4.w;
+          }
         } else {
 #pragma unroll
           for (int e = 0; e < DPL; ++e) vx[e] = to_float(vr[e]);
@@ -436,6 +440,17 @@ cudaError_t dispatch_hd(int hd, const Args& a) {
       return launch<TQ, T, 128, SOFTCAP>(a);
     case 192:
       return launch<TQ, T, 192, SOFTCAP>(a);
+    case 512:
+      // xLSTM-1.3B's token path: 4 query heads on 4 KV heads of 512, float32
+      // queries over a float32 cache, no softcap.  A float32 tile slot is
+      // 2·32·516·4 = 132 KB, so a block stages one slot of one warp (G = 1)
+      // and the split along S spreads a (row, KV head) over its cluster.
+      // The static q_s and acc_s hold 2 KB each at G = 1; no other group is
+      // instantiated at 512.
+      if constexpr (std::is_same_v<TQ, float> && std::is_same_v<T, float> && !SOFTCAP) {
+        if (a.H == a.KV) return launch_g<TQ, T, 512, 1, SOFTCAP>(a);
+      }
+      return cudaErrorInvalidValue;
     default:
       return cudaErrorInvalidValue;
   }
@@ -453,7 +468,8 @@ cudaError_t dispatch_softcap(int hd, const Args& a) {
 // k_cache, v_cache: (B, KV, S, hd) of `cache_dtype`, all contiguous;
 // valid_len: (B,) int32.  The pairs taken: float32 / float32, bfloat16 /
 // bfloat16, and float32 queries over a bfloat16 cache.  hd must be 16, 32,
-// 64, 128 or 192; softcap > 0 caps the scaled scores at ±softcap (tanh), 0 leaves
+// 64, 128 or 192, or 512 for float32 / float32 with one query head a KV
+// head and no softcap; softcap > 0 caps the scaled scores at ±softcap (tanh), 0 leaves
 // them.  Launches one cluster of blocks per (KV head, batch row) on
 // `stream` and returns the launch's error code (0 when it was accepted).
 extern "C" int decode_attention_launch(const void* q, const void* k_cache, const void* v_cache,

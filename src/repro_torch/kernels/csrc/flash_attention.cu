@@ -52,7 +52,9 @@
 //
 // A logit softcap (tanh(s / cap) · cap on the scaled scores, before the
 // masks) is a template flag, so that the instantiations without it are the
-// code they were.
+// code they were.  Training asks for each row's log-sum-exp as well (the
+// `lse` output, which flash_attention_bwd.cu reads); the serving path
+// passes null and the epilogue writes nothing more.
 
 #include <cmath>
 #include <cstddef>
@@ -197,6 +199,7 @@ __global__ void __launch_bounds__(32 * WARPS)
                            const T* __restrict__ v,  // (B, KV, S, HD)
                            const int* __restrict__ lengths,  // (B,) or null: all S
                            T* __restrict__ out,              // (B, H, S, HD), contiguous
+                           float* __restrict__ lse,          // (B, H, S) or null: not written
                            int H, int KV, int S, Strides sq, Strides sk, Strides sv, int causal,
                            int window, float sm_scale, float softcap) {
   using L = Tile<T, HD, BK>;
@@ -441,6 +444,18 @@ __global__ void __launch_bounds__(32 * WARPS)
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
+  // The backward's statistics: the log-sum-exp of each row's capped, scaled
+  // and masked scores, in natural units (m is in log2 units); -inf for a
+  // row with no valid key.
+  if (lse != nullptr && t == 0) {
+    constexpr float kLn2 = 0.6931471805599453f;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (qpos[r] < S)
+        lse[(static_cast<size_t>(b) * H + h) * S + qpos[r]] =
+            l[r] > 0.f ? (m[r] + log2f(l[r])) * kLn2 : -INFINITY;
+    }
+  }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (qpos[r] < S) {
@@ -466,6 +481,7 @@ struct Args {
   const void* v;
   const int* lengths;
   void* out;
+  float* lse;
   int B, H, KV, S;
   Strides sq, sk, sv;
   int causal, window;
@@ -481,7 +497,7 @@ cudaError_t launch(const Args& a) {
   const dim3 grid(a.H, a.B, (a.S + 16 * WARPS - 1) / (16 * WARPS));
   flash_attention_kernel<T, HD, WARPS, BK, SOFTCAP><<<grid, 32 * WARPS, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      a.lengths, static_cast<T*>(a.out), a.H, a.KV, a.S, a.sq, a.sk, a.sv, a.causal, a.window,
+      a.lengths, static_cast<T*>(a.out), a.lse, a.H, a.KV, a.S, a.sq, a.sk, a.sv, a.causal, a.window,
       1.f / std::sqrt(static_cast<float>(HD)), a.softcap);
   return cudaGetLastError();
 }
@@ -534,21 +550,23 @@ cudaError_t dispatch_softcap(int hd, const Args& a) {
 // q: (B, H, S, hd); k, v: (B, KV, S, hd), of the storage type `dtype`, with
 // the head dimension contiguous and the other strides given in elements;
 // every row must start on a 16-byte boundary (cp.async); lengths: (B,)
-// int32 or null (every row has S keys); out: (B, H, S, hd), contiguous.
+// int32 or null (every row has S keys); out: (B, H, S, hd), contiguous;
+// lse: (B, H, S) float32, contiguous, or null (the serving path: not
+// written), the log-sum-exp of each row's scores that the backward reads.
 // hd must be 16, 32, 64, 128 or 192; softcap > 0 caps the scaled scores at
 // ±softcap (tanh), 0 leaves them.  Launches on `stream` and returns
 // cudaGetLastError() (0 when the launch was accepted).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
-                                      const int* lengths, void* out, int dtype, int B, int H,
-                                      int KV, int S, int hd, long long sqb, long long sqh,
-                                      long long sqs, long long skb, long long skh,
+                                      const int* lengths, void* out, float* lse, int dtype,
+                                      int B, int H, int KV, int S, int hd, long long sqb,
+                                      long long sqh, long long sqs, long long skb, long long skh,
                                       long long sks, long long svb, long long svh,
                                       long long svs, int causal, int window, float softcap,
                                       void* stream) {
   using namespace repro_torch;
   if (B <= 0 || KV <= 0 || H % KV != 0 || S <= 0 || !(softcap >= 0.f))
     return cudaErrorInvalidValue;
-  const Args a{q, k, v, lengths, out, B, H, KV, S, Strides{sqb, sqh, sqs}, Strides{skb, skh, sks},
+  const Args a{q, k, v, lengths, out, lse, B, H, KV, S, Strides{sqb, sqh, sqs}, Strides{skb, skh, sks},
                Strides{svb, svh, svs}, causal, window, softcap, static_cast<cudaStream_t>(stream)};
   if (dtype == kFloat32) return dispatch_softcap<float>(hd, a);
   if (dtype == kBFloat16) return dispatch_softcap<__nv_bfloat16>(hd, a);

@@ -16,7 +16,10 @@ import torch
 
 from . import _build
 
-HEAD_DIMS = (16, 32, 64, 128, 192)
+HEAD_DIMS = (16, 32, 64, 128, 192, 512)
+# Head size 512 (xLSTM-1.3B's token path) is instantiated only for one
+# query head a KV head over float32 queries and cache, with no softcap.
+WIDE_HEAD_DIM = 512
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # (query, cache) storage types the kernel takes: one type for both, or
 # float32 queries over a bfloat16 cache (the models' decode step).
@@ -61,6 +64,12 @@ def check_inputs(q, k_cache, v_cache, valid_len, softcap: float = 0.0) -> None:
         raise ValueError("valid_len must be a contiguous (B,) int32 tensor")
     if not softcap >= 0:
         raise ValueError(f"softcap must be >= 0 (0: none), got {softcap}")
+    if hd == WIDE_HEAD_DIM and (h != kv or q.dtype != torch.float32
+                                or k_cache.dtype != torch.float32 or softcap > 0):
+        raise ValueError(
+            f"head_dim {hd} is taken only with one query head a KV head, float32 queries and "
+            f"cache and no softcap; got {h} heads on {kv}, {q.dtype}/{k_cache.dtype}, softcap {softcap}"
+        )
 
 
 def decode_attention_cuda(

@@ -1,10 +1,13 @@
-"""Binding and launch of the flash-attention kernel (``csrc/flash_attention.cu``).
+"""Binding and launch of the flash-attention kernels: the forward
+(``csrc/flash_attention.cu``) and its backward (``csrc/flash_attention_bwd.cu``).
 
-The CUDA kernel replaces the Pallas TPU kernel
-``repro.kernels.flash_attention.flash_attention_pallas``.  This module
-checks what the kernel takes, allocates the output, launches on PyTorch's
-current stream and counts the launches.  The plain version of the same
-function is :func:`repro_torch.kernels.ref.flash_attention_ref`.
+The forward replaces the Pallas TPU kernel
+``repro.kernels.flash_attention.flash_attention_pallas``; the backward has
+no TPU counterpart (the JAX trainer differentiates einsums).  This module
+checks what the kernels take, allocates their outputs, launches on
+PyTorch's current stream and counts the launches.  The plain version of
+the forward is :func:`repro_torch.kernels.ref.flash_attention_ref`; that of
+the backward is autograd through it.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ HEAD_DIMS = (16, 32, 64, 128, 192)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0  # kernel launches since the last reset (ops.reset_launch_counts)
+backward_launches = 0  # the same for the backward
 
 _c_int = ctypes.c_int
 _c_ll = ctypes.c_longlong
@@ -29,7 +33,15 @@ _c_ptr = ctypes.c_void_p
 @functools.cache
 def _entry():
     fn = _build.load("flash_attention").flash_attention_launch
-    fn.argtypes = [_c_ptr] * 5 + [_c_int] * 6 + [_c_ll] * 9 + [_c_int, _c_int, ctypes.c_float, _c_ptr]
+    fn.argtypes = [_c_ptr] * 6 + [_c_int] * 6 + [_c_ll] * 9 + [_c_int, _c_int, ctypes.c_float, _c_ptr]
+    fn.restype = _c_int
+    return fn
+
+
+@functools.cache
+def _backward_entry():
+    fn = _build.load("flash_attention_bwd").flash_attention_bwd_launch
+    fn.argtypes = [_c_ptr] * 11 + [_c_int] * 8 + [ctypes.c_float, _c_ptr]
     fn.restype = _c_int
     return fn
 
@@ -72,25 +84,27 @@ def flash_attention_cuda(
     causal: bool = True,
     window: int = 0,
     softcap: float = 0.0,
-) -> torch.Tensor:
+    return_lse: bool = False,
+) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
     """q: (B, H, S, hd); k, v: (B, KV, S, hd) on one CUDA device → (B, H, S, hd)
     in q's dtype.  Keys at or past ``lengths[b]`` are masked (``None``: all S);
-    ``softcap > 0`` caps the scaled scores (tanh(s / cap) · cap) before the masks."""
+    ``softcap > 0`` caps the scaled scores (tanh(s / cap) · cap) before the masks.
+    With ``return_lse`` also each row's log-sum-exp of its scores, (B, H, S)
+    float32, -inf for a row with no valid key: what the backward reads."""
     global launches
     check_inputs(q, k, v, lengths, softcap)
     _build.refuse_autograd("flash_attention", q, k, v)
-    devices = {t.device for t in (q, k, v)} | ({lengths.device} if lengths is not None else set())
-    if len(devices) != 1 or q.device.type != "cuda":
-        raise ValueError(f"all inputs must lie on one CUDA device; got {devices}")
+    _check_device(q, k, v, lengths)
     b, h, s, hd = q.shape
     out = torch.empty((b, h, s, hd), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if return_lse else None
     fn = _entry()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             lengths.data_ptr() if lengths is not None else None,
-            out.data_ptr(),
+            out.data_ptr(), lse.data_ptr() if lse is not None else None,
             DTYPES[q.dtype], b, h, k.shape[1], s, hd,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             int(causal), int(window), float(softcap), stream,
@@ -98,4 +112,64 @@ def flash_attention_cuda(
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
     launches += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+def _check_device(*tensors) -> None:
+    devices = {t.device for t in tensors if t is not None}
+    if len(devices) != 1 or tensors[0].device.type != "cuda":
+        raise ValueError(f"all inputs must lie on one CUDA device; got {devices}")
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and starting on a 16-byte boundary (the backward's
+    vector loads), copied only where it is not."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def flash_attention_backward_cuda(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    dout: torch.Tensor,
+    lse: torch.Tensor,
+    lengths: torch.Tensor | None = None,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    softcap: float = 0.0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradients (dq, dk, dv) of :func:`flash_attention_cuda` at (q, k, v,
+    lengths, causal, window, softcap), from its output ``out``, its
+    ``lse`` (``return_lse=True``) and the output's gradient ``dout``; each
+    in its input's dtype and shape, contiguous."""
+    global backward_launches
+    check_inputs(q, k, v, lengths, softcap)
+    if out.shape != q.shape or dout.shape != q.shape or out.dtype != q.dtype:
+        raise ValueError(f"out {tuple(out.shape)} / dout {tuple(dout.shape)} do not fit q {tuple(q.shape)}")
+    b, h, s, hd = q.shape
+    if lse.shape != (b, h, s) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be ({b}, {h}, {s}) float32; got {tuple(lse.shape)} {lse.dtype}")
+    _check_device(q, k, v, out, dout, lse, lengths)
+    q, k, v, out, lse = (_aligned(t) for t in (q, k, v, out, lse))
+    dout = _aligned(dout.to(q.dtype))
+    kv = k.shape[1]
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    scratch = torch.empty((b, h, s), dtype=torch.float32, device=q.device)  # rowsum(dO∘O)
+    fn = _backward_entry()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), lengths.data_ptr() if lengths is not None else None,
+            scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            DTYPES[q.dtype], b, h, kv, s, hd, int(causal), int(window), float(softcap), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_attention backward kernel launch failed: cudaError {err}")
+    backward_launches += 1
+    return dq, dk, dv

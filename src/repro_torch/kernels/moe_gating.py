@@ -1,10 +1,14 @@
-"""Binding and launch of the MoE top-k gating kernel (``csrc/moe_gating.cu``).
+"""Binding and launch of the MoE top-k gating kernels: the forward
+(``csrc/moe_gating.cu``) and the backward of its gates
+(``csrc/moe_gating_bwd.cu``).
 
-The CUDA kernel replaces the Pallas TPU kernel
-``repro.kernels.moe_gating.moe_gating_pallas``.  This module checks what the
-kernel takes, allocates the outputs, launches on PyTorch's current stream
-and counts the launches.  The plain version of the same function is
-:func:`repro_torch.kernels.ref.moe_gating_ref`.
+The forward replaces the Pallas TPU kernel
+``repro.kernels.moe_gating.moe_gating_pallas``; the backward has no TPU
+counterpart.  This module checks what the kernels take, allocates their
+outputs, launches on PyTorch's current stream and counts the launches.
+The plain version of the forward is
+:func:`repro_torch.kernels.ref.moe_gating_ref`; that of the backward is
+autograd through its gates.
 """
 
 from __future__ import annotations
@@ -21,12 +25,21 @@ MAX_EXPERTS = 256  # eight logits per lane of the row's warp
 MAX_TOP_K = 32  # one pass's gate per lane
 
 launches = 0  # kernel launches since the last reset (ops.reset_launch_counts)
+backward_launches = 0  # the same for the backward
 
 
 @functools.cache
 def _entry():
     fn = _build.load("moe_gating").moe_gating_launch
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _backward_entry():
+    fn = _build.load("moe_gating_bwd").moe_gating_bwd_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -68,3 +81,35 @@ def moe_gating_cuda(logits: torch.Tensor, top_k: int) -> tuple[torch.Tensor, tor
         raise RuntimeError(f"moe_gating kernel launch failed: cudaError {err}")
     launches += 1
     return gates, ids
+
+
+def moe_gating_backward_cuda(
+    logits: torch.Tensor, ids: torch.Tensor, dgates: torch.Tensor
+) -> torch.Tensor:
+    """The gradient of the logits (T, E), in their dtype, through the gates
+    of :func:`moe_gating_cuda`: ``ids`` (T, k) int32 as it returned them,
+    ``dgates`` (T, k) the gates' gradient.  The ids carry none."""
+    global backward_launches
+    check_inputs(logits, ids.shape[-1] if ids.dim() == 2 else 0)
+    t, e = logits.shape
+    k = ids.shape[1]
+    if ids.shape != (t, k) or ids.dtype != torch.int32 or dgates.shape != (t, k):
+        raise ValueError(f"ids {tuple(ids.shape)} {ids.dtype} / dgates {tuple(dgates.shape)} do not "
+                         f"fit logits {tuple(logits.shape)}")
+    if logits.device.type != "cuda" or ids.device != logits.device or dgates.device != logits.device:
+        raise ValueError(f"logits, ids and dgates must lie on one CUDA device; got {logits.device}, "
+                         f"{ids.device}, {dgates.device}")
+    ids = ids.contiguous()
+    dgates = dgates.float().contiguous()
+    dlogits = torch.empty_like(logits)
+    fn = _backward_entry()
+    with torch.cuda.device(logits.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(
+            logits.data_ptr(), ids.data_ptr(), dgates.data_ptr(), dlogits.data_ptr(),
+            DTYPES[logits.dtype], t, e, k, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"moe_gating backward kernel launch failed: cudaError {err}")
+    backward_launches += 1
+    return dlogits

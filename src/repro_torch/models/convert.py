@@ -1,4 +1,4 @@
-"""Reference parameters and decode caches → the port's, and caches back.
+"""Reference parameters and decode caches → the port's, and both back.
 
 :func:`from_numpy` takes the parameter pytree of :class:`repro.models.Model`
 with every leaf turned into a numpy array (``jax.tree.map(np.asarray,
@@ -11,6 +11,11 @@ layer stack, which the port keeps as a flat list of ``n_layers`` dicts:
   xLSTM's units of ``slstm_every`` blocks (see :func:`scan_unit`).  Layer
   ``u·unit + i`` is entry ``i``, row ``u``;
 - an unrolled stack is already a list of ``n_layers`` dicts.
+
+:func:`to_numpy` is the inverse of :func:`from_numpy`: the port's
+parameters as the reference's pytree of numpy arrays, the per-layer list
+stacked back into the scanned units where the reference scans (what a
+checkpoint holds, so that each package restores the other's files).
 
 :func:`cache_from_numpy` and :func:`cache_to_numpy` do the same for the
 decode cache (``repro.models.Model.init_cache`` / ``decode_step``), stacked
@@ -63,6 +68,32 @@ def from_numpy(
 
     out = {k: _tree(v, to_tensor) for k, v in np_params.items() if k != "blocks"}
     out["blocks"] = [_tree(b, to_tensor) for b in _per_layer(np_params["blocks"], cfg)]
+    return out
+
+
+def to_numpy(params: Params, cfg: ModelConfig) -> Params:
+    """The port's parameters → the reference's layout, every leaf a numpy
+    array of the tensor's values and type (float32, as both packages draw
+    them; a bfloat16 leaf raises, since numpy has no such type)."""
+
+    def leaf(t: torch.Tensor) -> np.ndarray:
+        if t.dtype == torch.bfloat16:
+            raise TypeError("a bfloat16 parameter has no numpy type; keep parameters in float32")
+        return t.detach().cpu().numpy()
+
+    return reference_tree(params, cfg, leaf, np.stack)
+
+
+def reference_tree(params: Params, cfg: ModelConfig, leaf, stack) -> Params:
+    """``params`` in the reference's layout with ``leaf`` applied to every
+    tensor, the per-layer list grouped into the scanned units by ``stack``
+    (a function of the list of one leaf's values over the units)."""
+    out = {k: _tree(v, leaf) for k, v in params.items() if k != "blocks"}
+    layers = [_tree(b, leaf) for b in params["blocks"]]
+    if len(layers) != cfg.n_layers:
+        raise ValueError(f"expected {cfg.n_layers} per-layer dicts, got {len(layers)}")
+    unit = scan_unit(cfg)
+    out["blocks"] = [_stack(layers[i::unit], stack) for i in range(unit)] if unit else layers
     return out
 
 
@@ -129,8 +160,8 @@ def cache_to_numpy(cache: list[Params], cfg: ModelConfig) -> list:
     return [_stack(layers[i::unit]) for i in range(unit)]
 
 
-def _stack(trees: list):
+def _stack(trees: list, stack=np.stack):
     first = trees[0]
     if isinstance(first, dict):
-        return {k: _stack([t[k] for t in trees]) for k in first}
-    return np.stack(trees)
+        return {k: _stack([t[k] for t in trees], stack) for k in first}
+    return stack(trees)

@@ -1,16 +1,16 @@
 """Model assembly of the port: embeddings (or a frontend's projected
 embeddings) + decoder blocks + head.
 
-The counterpart of :class:`repro.models.Model` for serving: the forward
-(``hidden_states`` / ``logits``), ``prefill``, and one-token decoding over
-a cache (``init_cache`` / ``decode_step``), for every block kind of the
-zoo (attention, MoE, Hymba, xLSTM) and both frontends.  Parameters are a
-dict of tensors in the JAX layout, passed explicitly as in the reference;
-the per-layer parameters are always a list of ``n_layers`` dicts (the
-scanned, stacked layout of the reference is unstacked by :mod:`.convert`),
-and so is the cache: a list of ``n_layers`` per-layer dicts (see
-:func:`.blocks.init_block_cache`), the KV caches in the decode kernel's
-(B, KV, S, head_dim) layout.
+The counterpart of :class:`repro.models.Model`: the forward
+(``hidden_states`` / ``logits``), the training loss (``loss``), ``prefill``,
+and one-token decoding over a cache (``init_cache`` / ``decode_step``), for
+every block kind of the zoo (attention, MoE, Hymba, xLSTM) and both
+frontends.  Parameters are a dict of tensors in the JAX layout, passed
+explicitly as in the reference; the per-layer parameters are always a list
+of ``n_layers`` dicts (the scanned, stacked layout of the reference is
+unstacked by :mod:`.convert`), and so is the cache: a list of ``n_layers``
+per-layer dicts (see :func:`.blocks.init_block_cache`), the KV caches in
+the decode kernel's (B, KV, S, head_dim) layout.
 
 Numerics follow the reference, quirks included: the token embedding is
 cast to ``cfg.dtype`` and then scaled by a float32 √d, which JAX promotes
@@ -19,15 +19,25 @@ An audio model has no token embedding: its frame embeddings are projected
 in ``cfg.dtype`` and the whole stack computes in it (bfloat16 for
 MusicGen).  A vision prefix is projected in ``cfg.dtype`` and joined to the
 float32 tokens, which JAX promotes to float32.
+
+Recomputation (``cfg.remat``) wraps each block in
+``torch.utils.checkpoint`` when grad mode is on, as the reference wraps its
+scanned unit (or each unrolled block) in ``jax.checkpoint``: nothing is
+saved between blocks (``nothing_saveable``), or, with ``remat_policy ==
+"dots"``, the outputs of the 2-D matrix products are kept
+(``dots_with_no_batch_dims_saveable``).  The backward re-runs each block's
+forward, so its kernels launch twice.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from ..device import resolve_device
 from .blocks import block_apply, block_decode, init_block, init_block_cache
@@ -46,6 +56,24 @@ from .layers import (
 Params = dict[str, Any]
 
 FRONTEND_DIMS = {"vision": 1024, "audio": 512}
+
+# Matrix products without a batch dimension: what the reference's "dots"
+# policy keeps (dots_with_no_batch_dims_saveable); a block's (B, S, d) @ W
+# reaches aten as a 2-D mm.
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _SAVED_DOTS:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_kwargs(cfg: ModelConfig) -> dict:
+    if cfg.remat_policy == "dots":
+        return {"context_fn": functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                                _dots_policy)}
+    return {}
 
 
 class Model(nn.Module):
@@ -112,8 +140,13 @@ class Model(nn.Module):
         cfg = self.cfg
         x = self._embed_inputs(params, batch)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        remat = cfg.remat and torch.is_grad_enabled()
         for i, bp in enumerate(params["blocks"]):
-            x, da = block_apply(bp, x, cfg, i)
+            if remat:
+                x, da = ckpt.checkpoint(block_apply, bp, x, cfg, i, use_reentrant=False,
+                                        **_remat_kwargs(cfg))
+            else:
+                x, da = block_apply(bp, x, cfg, i)
             aux = aux + da
         return norm_apply(params["final_norm"], x, cfg.norm), aux
 
@@ -125,6 +158,41 @@ class Model(nn.Module):
     def logits(self, params: Params, batch: dict[str, torch.Tensor]) -> torch.Tensor:
         h, _ = self.hidden_states(params, batch)
         return self._head(params, h)
+
+    # -------------------------------------------------------------- loss
+    def loss(self, params: Params, batch: dict[str, torch.Tensor]) -> torch.Tensor:
+        """Next-token cross entropy + 0.01·aux, as the reference's: labels < 0
+        are masked (and clamped to 0).  With ``cfg.loss_chunk`` set and S
+        above it, the sequence is padded to whole chunks of ``loss_chunk``
+        positions and each chunk takes its full-vocabulary logits in turn
+        (the reference's docstring says "vocab-chunked"; its code cuts S)."""
+        cfg = self.cfg
+        h, aux = self.hidden_states(params, batch)
+        labels = batch["labels"]
+        mask = (labels >= 0).float()
+        labels = labels.clamp_min(0).long()
+
+        def xent(h_slice, labels_slice, mask_slice):
+            logits = self._head(params, h_slice).float()
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = logits.gather(-1, labels_slice[..., None])[..., 0]
+            return ((logz - gold) * mask_slice).sum()
+
+        if cfg.loss_chunk and h.shape[1] > cfg.loss_chunk:
+            s, chunk = h.shape[1], cfg.loss_chunk
+            n_chunks = -(-s // chunk)
+            pad = n_chunks * chunk - s
+            if pad:
+                h = torch.nn.functional.pad(h, (0, 0, 0, pad))
+                labels = torch.nn.functional.pad(labels, (0, pad))
+                mask = torch.nn.functional.pad(mask, (0, pad))
+            total = torch.zeros((), dtype=torch.float32, device=h.device)
+            for i in range(n_chunks):  # unrolled, as the reference's
+                sl = slice(i * chunk, (i + 1) * chunk)
+                total = total + xent(h[:, sl], labels[:, sl], mask[:, sl])
+        else:
+            total = xent(h, labels, mask)
+        return total / mask.sum().clamp_min(1.0) + 0.01 * aux
 
     # ------------------------------------------------------------- cache
     def init_cache(

@@ -213,12 +213,12 @@ def test_decode_step_on_the_card_matches_the_cpu(cuda_device, arch, cache_dtype)
         torch.testing.assert_close(a["kv"]["k"].cpu().float(), b["kv"]["k"].float(), rtol=tol, atol=1e-4)
 
 
-def _tree_to(tree, device):
+def _tree_to(tree, device, copy=False):
     if isinstance(tree, dict):
-        return {k: _tree_to(v, device) for k, v in tree.items()}
+        return {k: _tree_to(v, device, copy) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_tree_to(v, device) for v in tree]
-    return tree.to(device)
+        return [_tree_to(v, device, copy) for v in tree]
+    return tree.to(device, copy=copy)
 
 
 @pytest.mark.cuda
@@ -441,11 +441,13 @@ def _kernel_call(op, dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("op", ["flash_attention", "decode_attention", "rmsnorm", "moe_gating"])
+@pytest.mark.parametrize("op", ["decode_attention"])
 def test_kernels_refuse_inputs_that_require_grad(cuda_device, op):
-    """No kernel has a backward yet: with grad mode on, an input that
-    requires grad makes the launch raise (each input in turn), where the
-    output would otherwise carry no graph.  Under no_grad it launches."""
+    """The decode kernel has no backward (no training path reaches it): with
+    grad mode on, an input that requires grad makes the launch raise (each
+    input in turn), where the output would otherwise carry no graph.  Under
+    no_grad it launches.  (Flash attention, RMSNorm and the gates carry a
+    graph through ``ops``: test_flash_rmsnorm_and_gating_carry_a_graph_on_the_card.)"""
     call, inputs, mod = _kernel_call(op, cuda_device)
     for t in inputs:
         t.requires_grad_(True)
@@ -504,11 +506,11 @@ def test_zoo_model_on_the_card_matches_the_cpu(cuda_device, arch):
 
 
 @pytest.mark.cuda
-def test_xlstm_token_path_refuses_head_size_512(cuda_device):
+def test_xlstm_token_path_runs_at_head_size_512(cuda_device):
     """The token path's executor prices decode attention at d_model /
-    n_heads: 512 for xLSTM-1.3B, which the decode kernel does not take.  On
-    the card that is a clear ValueError at the executor's warm-up step, not
-    a quiet turn to the plain version."""
+    n_heads: 512 for xLSTM-1.3B (4 query heads on 4 KV heads, float32 queries
+    and cache).  The executor warms up on the card, the decode kernel
+    launches, and its output matches the plain version's."""
     from repro_torch.configs import get_config
     from repro_torch.serving.engine import DecodeTorchExecutor
 
@@ -516,6 +518,268 @@ def test_xlstm_token_path_refuses_head_size_512(cuda_device):
     cfg = full.reduced(d_model=full.d_model, n_heads=full.n_heads, n_kv_heads=full.n_kv_heads)
     assert cfg.d_model // cfg.n_heads == 512
     before = dec_mod.launches
-    with pytest.raises(ValueError, match="head_dim 512 not supported"):
-        DecodeTorchExecutor(cfg, max_batch=2, max_cache=16, device=cuda_device)
-    assert dec_mod.launches == before
+    dec = DecodeTorchExecutor(cfg, max_batch=4, max_cache=80, device=cuda_device)
+    assert dec_mod.launches == before + 1
+    dec._valid = torch.tensor([80, 0, 33, 1], dtype=torch.int32, device=cuda_device)
+    for _ in range(3):
+        dec._decode_once()
+    assert dec_mod.launches == before + 4
+    q = _randn(torch.Generator(device=cuda_device).manual_seed(13), (4, 4, 512), cuda_device)
+    out = ops.decode_attention(q, dec._kc, dec._vc, dec._valid)
+    torch.cuda.synchronize()
+    want = ref.decode_attention_ref(q, dec._kc, dec._vc, dec._valid)
+    torch.testing.assert_close(out, want, rtol=1e-4, atol=1e-4)
+    assert (out[dec._valid == 0] == 0).all() and (dec._valid > 0).sum() == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,kv,s,valid", [(8, 4, 4, 256, None), (2, 4, 4, 1000, [1000, 3]),
+                                            (3, 1, 1, 40, [40, 0, 17])])
+def test_decode_kernel_head_size_512(cuda_device, b, h, kv, s, valid):
+    """Head size 512 at a group of 1 in float32: one 132 KB tile slot a
+    block, the cache split along S over a cluster; empty rows give 0."""
+    g = torch.Generator(device=cuda_device).manual_seed(14)
+    q = _randn(g, (b, h, 512), cuda_device)
+    kc, vc = (_randn(g, (b, kv, s, 512), cuda_device) for _ in range(2))
+    vl = (torch.randint(1, s + 1, (b,), generator=g, device=cuda_device, dtype=torch.int32)
+          if valid is None else torch.tensor(valid, dtype=torch.int32, device=cuda_device))
+    out = ops.decode_attention(q, kc, vc, vl)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref.decode_attention_ref(q, kc, vc, vl), rtol=1e-4, atol=1e-4)
+    assert (out[vl == 0] == 0).all()
+    for bad in (_randn(g, (b, 2 * kv, 512), cuda_device), q.bfloat16()):  # a group of 2; bf16
+        with pytest.raises((ValueError, TypeError), match="head_dim 512 is taken only|types must"):
+            ops.decode_attention(bad, kc, vc, vl)
+
+
+# ------------------------------------------------------------- backwards
+def _grad_close(got, want, tol):
+    """Within ``tol`` relative and ``tol`` times the largest |want| (at least
+    1) absolute: a gradient sums the same products in other orders."""
+    scale = max(1.0, want.float().abs().max().item())
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol * scale)
+
+
+def _grads(fn, inputs, douts):
+    """Outputs of ``fn`` on copies of ``inputs`` and the inputs' gradients
+    for the outputs' gradients ``douts``."""
+    ins = [t.detach().clone().requires_grad_(True) for t in inputs]
+    outs = fn(*ins)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    torch.autograd.backward([o for o, d in zip(outs, douts) if d is not None],
+                            [d for d in douts if d is not None])
+    return outs, [t.grad for t in ins]
+
+
+FLASH_BWD_CASES = [
+    # b, h, kv, s, hd, dtype, window, softcap, lengths, causal
+    (8, 12, 12, 256, 64, torch.float32, 0, 0.0, None, True),  # full-width orloj_gpt's step
+    (2, 32, 2, 256, 128, torch.float32, 0, 0.0, None, True),  # GLM-4's GQA 16:1
+    (2, 32, 2, 1024, 128, torch.float32, 0, 0.0, None, True),  # GLM-4's training step
+    (2, 4, 4, 24, 16, torch.float32, 0, 0.0, [24, 9], True),  # head size 16, lengths
+    (2, 8, 2, 300, 192, torch.float32, 0, 0.0, [300, 0], True),  # 192, ragged S, an empty row
+    (2, 4, 2, 256, 64, torch.float32, 64, 0.0, None, True),  # Hymba's window, shorter than S
+    (2, 8, 2, 256, 64, torch.float32, 0, 2.0, [256, 100], True),  # softcap
+    (2, 4, 4, 64, 32, torch.float32, 0, 0.0, [64, 10], False),  # full attention
+    (3, 4, 2, 1, 64, torch.float32, 0, 0.0, None, True),  # S = 1
+    (2, 4, 4, 256, 64, torch.bfloat16, 0, 0.0, None, True),
+    (2, 14, 2, 256, 128, torch.bfloat16, 96, 0.0, [256, 131], True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,kv,s,hd,dtype,window,softcap,lengths,causal", FLASH_BWD_CASES)
+def test_flash_backward_kernel_matches_autograd_through_plain(cuda_device, b, h, kv, s, hd, dtype,
+                                                              window, softcap, lengths, causal):
+    """dq, dk, dv through ``ops.flash_attention``'s autograd Function (the
+    forward with its LSE, then the backward kernel) against autograd through
+    the plain version, on the same inputs and output gradient: float32 to
+    1e-4, bf16 to 2e-2 (relative, and of the largest gradient); the LSE
+    against the plain log-sum-exp (-inf for a row with no valid key)."""
+    g = torch.Generator(device=cuda_device).manual_seed(20)
+    q = _randn(g, (b, h, s, hd), cuda_device, dtype)
+    k, v = (_randn(g, (b, kv, s, hd), cuda_device, dtype) for _ in range(2))
+    dout = _randn(g, (b, h, s, hd), cuda_device, dtype)
+    lens = None if lengths is None else torch.tensor(lengths, dtype=torch.int32, device=cuda_device)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    before = (fa_mod.launches, fa_mod.backward_launches)
+    (out,), got = _grads(lambda *t: ops.flash_attention(*t, lens, **kw), (q, k, v), (dout,))
+    torch.cuda.synchronize()
+    assert (fa_mod.launches, fa_mod.backward_launches) == (before[0] + 1, before[1] + 1)
+    (want_out,), want = _grads(lambda *t: ref.flash_attention_ref(*t, lengths=lens, **kw), (q, k, v),
+                               (dout,))
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    _grad_close(out, want_out, tol)
+    for name, a, w in zip("qkv", got, want):
+        assert a.dtype == dtype and a.shape == w.shape and torch.isfinite(a).all(), name
+        _grad_close(a, w, tol)
+    _, lse = fa_mod.flash_attention_cuda(q, k, v, lens, return_lse=True, **kw)
+    i, j = torch.arange(s, device=cuda_device)[:, None], torch.arange(s, device=cuda_device)[None]
+    mask = torch.ones((s, s), dtype=torch.bool, device=cuda_device)
+    if causal:
+        mask &= j <= i
+    if window:
+        mask &= j > i - window
+    mask = mask[None].expand(b, s, s)
+    if lens is not None:
+        mask = mask & (j[None] < lens[:, None, None])
+    scores = torch.einsum("bhsd,bhtd->bhst", q.float(), k.float().repeat_interleave(h // kv, 1)) / hd**0.5
+    if softcap:
+        scores = torch.tanh(scores / softcap) * softcap
+    want_lse = torch.where(mask[:, None], scores, -torch.inf).logsumexp(-1)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4 if dtype == torch.float32 else 2e-2)
+    if lengths is not None and 0 in lengths:
+        row = lengths.index(0)
+        assert (got[0][row] == 0).all() and torch.isinf(lse[row]).all()
+
+
+RMSNORM_BWD_CASES = [(2048, 4096, torch.float32), (2048, 1600, torch.float32), (300, 7168, torch.float32),
+                     (7, 1024, torch.float32), (33, 130, torch.float32), (1, 64, torch.float32),
+                     (256, 4096, torch.bfloat16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,d,dtype", RMSNORM_BWD_CASES)
+def test_rmsnorm_backward_kernel_matches_autograd_through_plain(cuda_device, t, d, dtype):
+    """dx and dscale through ``ops.rmsnorm`` (eps 1e-5, the models') against
+    autograd through the plain version: dx to 1e-5 in float32 (one row sum
+    in another order), dscale to 1e-4 (a column sum over T rows in another
+    order), bf16 to 2e-2."""
+    g = torch.Generator(device=cuda_device).manual_seed(21)
+    x = _randn(g, (t, d), cuda_device, dtype) * 3
+    scale = _randn(g, (d,), cuda_device)
+    dy = _randn(g, (t, d), cuda_device, dtype)
+    before = (rms_mod.launches, rms_mod.backward_launches)
+    (out,), (dx, dscale) = _grads(lambda a, w: ops.rmsnorm(a, w, eps=1e-5), (x, scale), (dy,))
+    torch.cuda.synchronize()
+    assert (rms_mod.launches, rms_mod.backward_launches) == (before[0] + 1, before[1] + 1)
+    (_,), (want_dx, want_ds) = _grads(lambda a, w: ref.rmsnorm_ref(a, w, 1e-5), (x, scale), (dy,))
+    bf16 = dtype == torch.bfloat16
+    assert dx.dtype == dtype and dscale.dtype == torch.float32
+    _grad_close(dx, want_dx, 2e-2 if bf16 else 1e-5)
+    _grad_close(dscale, want_ds, 2e-2 if bf16 else 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,e,k,case", [(2048, 128, 2, "randn"), (256, 16, 4, "randn"), (64, 3, 2, "randn"),
+                                        (64, 130, 4, "randn"), (2048, 256, 2, "randn"), (64, 8, 8, "randn"),
+                                        (6, 16, 4, "ties"), (4, 16, 4, "-inf"), (512, 128, 2, "bf16")])
+def test_moe_gating_backward_kernel_matches_autograd_through_plain(cuda_device, t, e, k, case):
+    """The logits' gradient through ``ops.moe_gating``'s gates against
+    autograd through the plain version's gates, to 1e-5 of the largest
+    (2e-2 over bf16 logits); the ids take no gradient and are equal."""
+    g = torch.Generator(device=cuda_device).manual_seed(22)
+    dtype = torch.bfloat16 if case == "bf16" else torch.float32
+    logits = (_randn(g, (t, e), cuda_device) * 2).to(dtype)
+    if case == "ties":
+        logits[1] = 3.0
+        logits[2, [3, 9, 12]] = 5.0
+    if case == "-inf":
+        logits[0, 1:] = -torch.inf
+        logits[1, ::2] = -torch.inf
+    dgates = _randn(g, (t, k), cuda_device)
+    before = (gating_mod.launches, gating_mod.backward_launches)
+    (gates, ids), (got,) = _grads(lambda x: ops.moe_gating(x, k), (logits,), (dgates, None))
+    torch.cuda.synchronize()
+    assert (gating_mod.launches, gating_mod.backward_launches) == (before[0] + 1, before[1] + 1)
+    assert not ids.requires_grad
+    (wg, wi), (want,) = _grads(lambda x: ref.moe_gating_ref(x, k), (logits,), (dgates, None))
+    assert torch.equal(ids, wi)
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    _grad_close(got, want, 2e-2 if dtype == torch.bfloat16 else 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["flash_attention", "rmsnorm", "moe_gating"])
+def test_flash_rmsnorm_and_gating_carry_a_graph_on_the_card(cuda_device, op):
+    """Through ``ops``, inputs that require grad give an output with a graph
+    whose backward launches the backward kernel once; under no_grad the
+    forward alone launches, as on the serving path.  The raw launchers
+    still refuse such inputs."""
+    raw, inputs, mod = _kernel_call(op, cuda_device)
+    route = {
+        "flash_attention": lambda q, k, v: ops.flash_attention(q, k, v),
+        "rmsnorm": lambda x, w: ops.rmsnorm(x, w),
+        "moe_gating": lambda x: ops.moe_gating(x, 2)[0],
+    }[op]
+    ins = [t.detach().clone().requires_grad_(True) for t in inputs]
+    before = (mod.launches, mod.backward_launches)
+    out = route(*ins)
+    assert out.requires_grad and out.grad_fn is not None
+    out.sum().backward()
+    torch.cuda.synchronize()
+    assert (mod.launches, mod.backward_launches) == (before[0] + 1, before[1] + 1)
+    assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in ins)
+    with torch.no_grad():
+        route(*ins)
+    assert (mod.launches, mod.backward_launches) == (before[0] + 2, before[1] + 1)
+    for t in inputs:
+        t.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        raw()
+
+
+def _train_step_card_vs_cpu(cfg, tokens, labels, lr=1e-3):
+    """One train step (loss, gradient, AdamW update) of the same weights and
+    batch on the card and on the CPU; returns both sides' (loss, gradient
+    leaves, parameters before and after)."""
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim.adamw import leaves
+
+    out = {}
+    drawn = Model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(30))
+    for dev in ("cuda", "cpu"):
+        model = Model(cfg, device=dev)
+        params = _tree_to(drawn, dev, copy=True)  # the update is in place: each side its own copy
+        for p in leaves(params):
+            p.requires_grad_(True)
+        before = [p.detach().clone() for p in leaves(params)]
+        batch = {"tokens": torch.from_numpy(tokens).to(dev), "labels": torch.from_numpy(labels).to(dev)}
+        grads = torch.autograd.grad(model.loss(params, batch), leaves(params), materialize_grads=True,
+                                    allow_unused=True)
+        opt = AdamWConfig(lr=lr, total_steps=10, warmup_steps=1)
+        params, state, loss = make_train_step(model, opt)(params, adamw_init(params), batch)
+        out[dev] = (float(loss), [g.cpu() for g in grads], [p.cpu() for p in before],
+                    [p.detach().cpu() for p in leaves(params)])
+    return out["cuda"], out["cpu"]
+
+
+def _hold_step(card, cpu, lr):
+    """The loss to 1e-4 relative; every gradient leaf to 1e-3 of its largest
+    |g| (float32 on both sides, the kernels summing in other orders); the
+    parameters after one AdamW step, which moves each by lr·(g/(|g|+eps) +
+    wd·p): equal to 1e-5 where the CPU's |g| is above 1e-2 of its leaf's
+    largest (the step's sign is settled there), and within 2·lr elsewhere."""
+    (l1, g1, _, a1), (l2, g2, _, a2) = card, cpu
+    assert abs(l1 - l2) <= 1e-4 * abs(l2), (l1, l2)
+    for x, y in zip(g1, g2, strict=True):
+        _grad_close(x, y, 1e-3)
+    for x, y, g in zip(a1, a2, g2, strict=True):
+        settled = g.abs() > 1e-2 * g.abs().max()
+        torch.testing.assert_close(x[settled], y[settled], rtol=1e-5, atol=1e-5)
+        assert ((x - y).abs() <= 2 * lr + 1e-6).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["glm4_9b", "arctic_480b", "hymba_1_5b"])
+def test_train_step_on_the_card_matches_the_cpu(cuda_device, arch):
+    """GLM-4 (RMSNorm, GQA), Arctic with 16 experts (the gates' backward),
+    Hymba (its window of 64 shorter than the 96 positions): one train step
+    on the card, through the backward kernels, against the CPU's."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch).reduced(**({"n_experts": 16} if arch == "arctic_480b" else {}))
+    rng = np.random.default_rng(31)
+    tokens = rng.integers(0, cfg.vocab_size, size=(2, 96))
+    labels = rng.integers(0, cfg.vocab_size, size=(2, 96))
+    labels[0, :5] = -1
+    before = ops.launch_counts()
+    card, cpu = _train_step_card_vs_cpu(cfg, tokens, labels)
+    after = ops.launch_counts()
+    for name in ("flash_attention_bwd", "rmsnorm_bwd") + (("moe_gating_bwd",) if cfg.is_moe else ()):
+        assert after[name] > before[name], name
+    _hold_step(card, cpu, 1e-3)

@@ -9,9 +9,9 @@ reference on the same weights (drawn by the reference and converted), with
 the tolerances of ``test_torch_models.py`` and ``test_torch_decode.py``:
 1e-5 for one layer, 2e-5 for a model's logits.
 
-The CUDA kernels have no backward yet, so on the card they refuse inputs
-that require grad; on the CPU the plain versions are plain torch ops that
-autograd follows.  The gradient of a scalar of the logits with respect to
+On the CPU the kernels' plain versions are plain torch ops that autograd
+follows (on the card, flash attention, RMSNorm and the gates go through
+their backward kernels; ``tests/test_torch_cuda.py``).  The gradient of a scalar of the logits with respect to
 every parameter is held against ``jax.grad`` of the reference's, to 1e-4
 relative to each leaf's largest gradient (a backward pass sums the same
 products in more orders than the forward).

@@ -475,6 +475,7 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     )
     assert ops.launch_counts() == {
         "flash_attention": 0, "decode_attention": 0, "rmsnorm": 0, "moe_gating": 0,
+        "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "moe_gating_bwd": 0,
     }
 
 
@@ -492,6 +493,7 @@ def test_cpu_tensors_launch_neither_new_kernel():
     assert torch.equal(ids, wi) and torch.equal(gates, wg)
     assert ops.launch_counts() == {
         "flash_attention": 0, "decode_attention": 0, "rmsnorm": 0, "moe_gating": 0,
+        "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "moe_gating_bwd": 0,
     }
 
 
@@ -607,6 +609,54 @@ def test_moe_gating_checks_reject_what_the_kernel_does_not_take(case, k):
         gating_mod.check_inputs(logits, k)
 
 
+@pytest.mark.parametrize("case", ["flash lse shape", "flash out shape", "flash on the cpu",
+                                  "flash hd 512", "rmsnorm dy shape", "rmsnorm d too wide",
+                                  "rmsnorm on the cpu", "gating ids int64", "gating dgates shape",
+                                  "gating on the cpu"])
+def test_backward_launchers_reject_what_their_kernels_do_not_take(case):
+    """The backward launchers check shapes, types and the device before any
+    build or launch, so these raise here, without a card or nvcc."""
+    q = torch.zeros((2, 4, 16, 64))
+    k = torch.zeros((2, 2, 16, 64))
+    lse = torch.zeros((2, 4, 16))
+    x, scale = torch.zeros((8, 64)), torch.ones(64)
+    logits, ids, dg = torch.zeros((8, 16)), torch.zeros((8, 2), dtype=torch.int32), torch.zeros((8, 2))
+    with pytest.raises((ValueError, TypeError)):
+        if case == "flash lse shape":
+            fa_mod.flash_attention_backward_cuda(q, k, k, q, q, lse[:, :, :8])
+        elif case == "flash out shape":
+            fa_mod.flash_attention_backward_cuda(q, k, k, q[:, :2], q, lse)
+        elif case == "flash on the cpu":
+            fa_mod.flash_attention_backward_cuda(q, k, k, q, q, lse)
+        elif case == "flash hd 512":
+            big = torch.zeros((1, 1, 4, 512))
+            fa_mod.flash_attention_backward_cuda(big, big, big, big, big, torch.zeros((1, 1, 4)))
+        elif case == "rmsnorm dy shape":
+            rms_mod.rmsnorm_backward_cuda(x, scale, x[:4])
+        elif case == "rmsnorm d too wide":
+            wide = torch.zeros((1, rms_mod.MAX_BACKWARD_D + 4))
+            rms_mod.rmsnorm_backward_cuda(wide, torch.ones(wide.shape[1]), wide)
+        elif case == "rmsnorm on the cpu":
+            rms_mod.rmsnorm_backward_cuda(x, scale, x)
+        elif case == "gating ids int64":
+            gating_mod.moe_gating_backward_cuda(logits, ids.long(), dg)
+        elif case == "gating dgates shape":
+            gating_mod.moe_gating_backward_cuda(logits, ids, dg[:, :1])
+        else:
+            gating_mod.moe_gating_backward_cuda(logits, ids, dg)
+
+
+def test_decode_checks_take_head_size_512_only_at_a_group_of_1_in_float32():
+    kc = torch.zeros((2, 4, 32, 512))
+    valid = torch.zeros((2,), dtype=torch.int32)
+    dec_mod.check_inputs(torch.zeros((2, 4, 512)), kc, kc, valid)  # xLSTM's: taken
+    for q, cache, cap in ((torch.zeros((2, 8, 512)), kc, 0.0),  # a group of 2
+                          (torch.zeros((2, 4, 512)), kc.bfloat16(), 0.0),  # a bf16 cache
+                          (torch.zeros((2, 4, 512)), kc, 2.0)):  # softcap
+        with pytest.raises(ValueError, match="head_dim 512 is taken only"):
+            dec_mod.check_inputs(q, cache, cache, valid, cap)
+
+
 def test_build_command_targets_hopper(monkeypatch):
     monkeypatch.setattr(_build, "nvcc_path", lambda: "nvcc")
     for name in _build.KERNELS:
@@ -617,5 +667,6 @@ def test_build_command_targets_hopper(monkeypatch):
         assert cmd[-1].endswith(f"csrc/{name}.cu")
         assert out.parent.name == "repro_torch_kernels" and out.parent.parent.name == "build"
         assert _build.library_path(name) == out  # keyed by content: stable
-    assert len({_build.library_path(n) for n in _build.KERNELS}) == 4
+    # the four forwards and the backwards of flash attention, RMSNorm and the gates
+    assert len({_build.library_path(n) for n in _build.KERNELS}) == len(_build.KERNELS) == 7
     assert set(_build.KERNELS) == set(ops.launch_counts())
