@@ -114,9 +114,9 @@ Phases, each reported on its own lines; any failure exits non-zero:
    cores: ``tc_bound_ms``, and the forward with its LSE output off and on,
    ``lse``; for the gating also its own duration from the profiler,
    ``own_ms``, and both times at T = 8, 32, 256 and 2048, ``by_T``; for
-   the backwards the kernel by graph replay, ``ms``, and between CUDA
-   events, ``event_ms``, beside autograd through the plain version and the
-   library's backward, both between events).
+   the backwards autograd through the plain version and the library's
+   backward, each captured in a CUDA graph and replayed, as the kernels
+   are).
 
 Phases 4 and 5 also run decode ≡ forward: a prompt of a few tokens for 2
 rows through ``Model.logits`` and the same tokens one by one through
@@ -212,55 +212,67 @@ def time_ms(fn, reps: int = 20, graphs: int = 5) -> float:
     return start.elapsed_time(end) / (reps * graphs)
 
 
-def own_ms(fn, kernel: str, calls: int = 20, attempts: int = 3) -> float:
+def own_ms(fn, kernel: str, calls: int = 20) -> float:
     """Mean device duration (ms) of the kernel whose name holds ``kernel``,
     over ``calls`` calls of ``fn``, from the profiler's CUPTI kernel
     records: the kernel's own run, without the launch interval that each
     call timed by :func:`time_ms` also holds.  The mean is over the kernel
-    records the profiler kept (it may drop one of a run).  Each run has a
+    records the profiler kept (it may drop one of a run).  The run has a
     warm-up step, whose records are discarded, before the measured one: on
     some hosts a profile that starts cold keeps only 6 to 9 records of 20.
-    A run that kept fewer than half is profiled again, up to ``attempts``
-    runs in all; fails if none kept half."""
+    Fails if the measured step kept fewer than half."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-            for _ in range(2):  # the warm-up step, then the measured one
-                for _ in range(calls):
-                    fn()
-                torch.cuda.synchronize()
-                prof.step()
-        found = [e for e in prof.key_averages() if kernel in e.key and e.device_type.name == "CUDA"]
-        n = sum(e.count for e in found)
-        if calls / 2 <= n <= calls:
-            return sum(e.device_time_total for e in found) / n / 1e3
-        log(f"the profiler recorded {n} {kernel} kernels for {calls} calls; profiling again")
-    raise SystemExit(f"the profiler recorded fewer than {calls / 2:.0f} {kernel} kernels for {calls} calls "
-                     f"in each of {attempts} runs")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):  # the warm-up step, then the measured one
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    found = [e for e in prof.key_averages() if kernel in e.key and e.device_type.name == "CUDA"]
+    n = sum(e.count for e in found)
+    if not calls / 2 <= n <= calls:
+        raise SystemExit(f"the profiler recorded {n} {kernel} kernels for {calls} calls")
+    return sum(e.device_time_total for e in found) / n / 1e3
 
 
-def event_ms(fn, reps: int = 10) -> float:
-    """Time of one call of ``fn`` between CUDA events over ``reps`` calls,
-    after 3 warm-up calls: the host's launches included.  For the backward
-    passes through autograd, which are not captured in a CUDA graph."""
+def grad_ms(forward, ins, dout) -> float:
+    """Device time of one backward through autograd, as :func:`time_ms`
+    times a kernel: ``forward(*ins)`` runs once on a side stream, then 20
+    calls of ``torch.autograd.grad`` of its output for ``dout`` are captured
+    in a CUDA graph on that stream (autograd runs each backward operation
+    on its forward's stream) and replayed 5 times between CUDA events.  The
+    host's launches are not in the number."""
     import torch
 
-    for _ in range(3):
-        fn()
+    reps, graphs = 20, 5
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        out = forward(*ins)
+        for _ in range(3):  # warm-up outside the capture
+            torch.autograd.grad(out, ins, dout, retain_graph=True)
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=stream):
+        for _ in range(reps):
+            torch.autograd.grad(out, ins, dout, retain_graph=True)
+    g.replay()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps):
-        fn()
+    for _ in range(graphs):
+        g.replay()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / (reps * graphs)
 
 
 def flash_work(q, k, lengths, causal: bool, window: int) -> tuple[int, int]:
@@ -333,17 +345,18 @@ def gating_bound(logits, k: int) -> tuple[float, str]:
 def flash_bwd_bound(q, k, lengths, causal: bool, window: int) -> tuple[float, str, float, str]:
     """Least time (ms) of the flash backward on these inputs: q, k, v, the
     output, its gradient and the float32 LSE read once, dq, dk, dv written
-    once; five products of hd multiply-adds per (query, key) pair the masks
-    let through (the recomputed q·k, dO·v, and the dV, dK, dQ products), 10·hd
-    FLOPs.  (bound, by) with float32 at the SIMT rate (the kernel's route),
-    then (tc_bound, by) on the tensor cores (float32 as three TF32 passes)."""
+    once (4 tensors of q's shape, 4 of k's); five products of hd
+    multiply-adds per (query, key) pair the masks let through (the
+    recomputed q·k, dO·v, and the dV, dK, dQ products), 10·hd FLOPs.
+    (bound, by) with float32 at the SIMT rate (the kernel's route), then
+    (tc_bound, by) on the tensor cores (float32 as three TF32 passes)."""
     import torch
 
     b, h, s, hd = q.shape
     _, fwd_flops = flash_work(q, k, lengths, causal, window)
     pairs = fwd_flops // (4 * hd)
     elt = q.element_size()
-    nbytes = elt * (3 * 2 * b * h * s * hd + 2 * 2 * b * k.shape[1] * s * hd) + 4 * b * h * s
+    nbytes = elt * (4 * b * h * s * hd + 4 * b * k.shape[1] * s * hd) + 4 * b * h * s
     flops = 10 * hd * pairs
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = (3 * flops / TF32_FLOP_PER_S if q.dtype == torch.float32 else flops / BF16_FLOP_PER_S) * 1e3
@@ -1453,10 +1466,9 @@ def _flash_lse_entry(gen) -> dict:
 
 
 def _flash_bwd_entry(gen, b, h, kv, s, hd, dtype) -> dict:
-    """The flash backward at one causal shape: the kernel by graph replay
-    (``ms``) and between CUDA events (``event_ms``); autograd through the
-    plain version (``plain_ms``) and SDPA's backward on the same q, dO and
-    the KV heads repeated (``library_ms``), both between CUDA events."""
+    """The flash backward at one causal shape, by graph replay: the kernel
+    (``ms``), autograd through the plain version (``plain_ms``) and SDPA's
+    backward on the same q, dO and the KV heads repeated (``library_ms``)."""
     import torch
     import torch.nn.functional as F
 
@@ -1469,23 +1481,21 @@ def _flash_bwd_entry(gen, b, h, kv, s, hd, dtype) -> dict:
     out, lse = fa.flash_attention_cuda(q, k, v, return_lse=True)
     kernel = lambda: fa.flash_attention_backward_cuda(q, k, v, out, dout, lse)  # noqa: E731
     ins = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
-    plain_out = ref.flash_attention_ref(*ins)
     lib_ins = [t.detach().clone().requires_grad_(True)
                for t in (q, k.repeat_interleave(h // kv, 1), v.repeat_interleave(h // kv, 1))]
-    lib_out = F.scaled_dot_product_attention(*lib_ins, is_causal=True)
     bound, by, tc_bound, tc_by = flash_bwd_bound(q, k, None, True, 0)
     e = {
-        "ms": time_ms(kernel), "event_ms": event_ms(kernel),
-        "plain_ms": event_ms(lambda: torch.autograd.grad(plain_out, ins, dout, retain_graph=True)),
+        "ms": time_ms(kernel),
+        "plain_ms": grad_ms(ref.flash_attention_ref, ins, dout),
         "bound_ms": bound, "bound_by": by,
-        "library_ms": event_ms(lambda: torch.autograd.grad(lib_out, lib_ins, dout, retain_graph=True)),
+        "library_ms": grad_ms(lambda *t: F.scaled_dot_product_attention(*t, is_causal=True), lib_ins, dout),
         "tc_bound_ms": tc_bound, "tc_bound_by": tc_by,
     }
     log(f"flash backward ({b},{h}->{kv},{s},{hd}) {str(dtype)[6:]}, ratios in this call: /SDPA backward "
-        f"{e['event_ms'] / e['library_ms']:.3f} (both between events), /plain {e['event_ms'] / e['plain_ms']:.3f}, "
-        f"/bound {e['ms'] / bound:.3f} (bound {bound:.6f} ms, {by}), /tc_bound {e['ms'] / tc_bound:.3f} "
-        f"(tc_bound {tc_bound:.6f} ms, {tc_by}); {e['ms']:.6f} ms by graph replay, {e['event_ms']:.6f} "
-        f"between events")
+        f"{e['ms'] / e['library_ms']:.3f}, /plain {e['ms'] / e['plain_ms']:.3f}, /bound {e['ms'] / bound:.3f} "
+        f"(bound {bound:.6f} ms, {by}), /tc_bound {e['ms'] / tc_bound:.3f} (tc_bound {tc_bound:.6f} ms, "
+        f"{tc_by}); {e['ms']:.6f} ms, plain {e['plain_ms']:.6f}, SDPA backward {e['library_ms']:.6f} "
+        f"(all by graph replay)")
     return e
 
 
@@ -1514,48 +1524,46 @@ def _backward_entries(gen, counts: dict[str, int], errs: dict[str, float]) -> li
     x = _randn(gen, (2048, 4096), f32)
     scale, dy = _randn(gen, (4096,), f32), _randn(gen, (2048, 4096), f32)
     ins = [t.detach().clone().requires_grad_(True) for t in (x, scale)]
-    plain_out = ref.rmsnorm_ref(*ins, 1e-5)
-    lib_out = F.rms_norm(ins[0], (4096,), weight=ins[1], eps=1e-5)
     bound, by = rmsnorm_bwd_bound(x)
     kernel = lambda: rms.rmsnorm_backward_cuda(x, scale, dy, eps=1e-5)  # noqa: E731
     rmsnorm = {
         "name": "rmsnorm_bwd", "route": "cuda", "source": "src/repro_torch/kernels/csrc/rmsnorm_bwd.cu",
         "replaces": "src/repro/kernels/rmsnorm.py:24",
         "launches": counts["rmsnorm_bwd"], "max_abs_err": errs["rmsnorm_bwd"],
-        "ms": time_ms(kernel), "event_ms": event_ms(kernel),
-        "plain_ms": event_ms(lambda: torch.autograd.grad(plain_out, ins, dy, retain_graph=True)),
+        "ms": time_ms(kernel),
+        "plain_ms": grad_ms(lambda x_, s_: ref.rmsnorm_ref(x_, s_, 1e-5), ins, dy),
         "bound_ms": bound, "bound_by": by,
-        "library_ms": event_ms(lambda: torch.autograd.grad(lib_out, ins, dy, retain_graph=True)),
+        "library_ms": grad_ms(lambda x_, s_: F.rms_norm(x_, (4096,), weight=s_, eps=1e-5), ins, dy),
     }
-    log(f"rmsnorm backward (2048,4096) f32: {rmsnorm['ms']:.6f} ms by graph replay, {rmsnorm['event_ms']:.6f} "
-        f"between events; /bound {rmsnorm['ms'] / bound:.3f} (bound {bound:.6f} ms, {by}); /F.rms_norm "
-        f"backward {rmsnorm['event_ms'] / rmsnorm['library_ms']:.3f}, /plain "
-        f"{rmsnorm['event_ms'] / rmsnorm['plain_ms']:.3f} (between events)")
+    log(f"rmsnorm backward (2048,4096) f32: {rmsnorm['ms']:.6f} ms; /bound {rmsnorm['ms'] / bound:.3f} "
+        f"(bound {bound:.6f} ms, {by}); /F.rms_norm backward {rmsnorm['ms'] / rmsnorm['library_ms']:.3f} "
+        f"({rmsnorm['library_ms']:.6f} ms), /plain {rmsnorm['ms'] / rmsnorm['plain_ms']:.3f} "
+        f"({rmsnorm['plain_ms']:.6f} ms) (all by graph replay)")
 
     logits = _randn(gen, (2048, 128), f32) * 2
     _, ids = gating.moe_gating_cuda(logits, 2)
     dg = _randn(gen, (2048, 2), f32)
-    lg = logits.detach().clone().requires_grad_(True)
-    plain_gates = ref.moe_gating_ref(lg, 2)[0]
-    lc = logits.detach().clone().requires_grad_(True)
-    top, _ = torch.topk(torch.softmax(lc, dim=-1), 2, dim=-1)
-    comp_gates = top / top.sum(-1, keepdim=True).clamp_min(1e-9)
+    lg = [logits.detach().clone().requires_grad_(True)]
+
+    def composite(x):
+        top, _ = torch.topk(torch.softmax(x, dim=-1), 2, dim=-1)
+        return top / top.sum(-1, keepdim=True).clamp_min(1e-9)
+
     bound, by = gating_bwd_bound(logits, 2)
     kernel = lambda: gating.moe_gating_backward_cuda(logits, ids, dg)  # noqa: E731
     moe = {
         "name": "moe_gating_bwd", "route": "cuda", "source": "src/repro_torch/kernels/csrc/moe_gating_bwd.cu",
         "replaces": "src/repro/kernels/moe_gating.py:44",
         "launches": counts["moe_gating_bwd"], "max_abs_err": errs["moe_gating_bwd"],
-        "ms": time_ms(kernel), "event_ms": event_ms(kernel),
+        "ms": time_ms(kernel),
         "own_ms": own_ms(kernel, "moe_gating_bwd_kernel"),
-        "plain_ms": event_ms(lambda: torch.autograd.grad(plain_gates, lg, dg, retain_graph=True)),
+        "plain_ms": grad_ms(lambda x: ref.moe_gating_ref(x, 2)[0], lg, dg),
         "bound_ms": bound, "bound_by": by, "library_ms": None,
-        "composite_ms": event_ms(lambda: torch.autograd.grad(comp_gates, lc, dg, retain_graph=True)),
+        "composite_ms": grad_ms(composite, lg, dg),
     }
-    log(f"moe_gating backward (2048,128) k 2 f32: {moe['ms']:.6f} ms by graph replay, own duration "
-        f"{moe['own_ms']:.6f} ms, {moe['event_ms']:.6f} between events; bound {bound:.6f} ms ({by}); "
-        f"composite softmax/topk/renormalise backward {moe['composite_ms']:.6f} ms, plain "
-        f"{moe['plain_ms']:.6f} ms (between events)")
+    log(f"moe_gating backward (2048,128) k 2 f32: {moe['ms']:.6f} ms, own duration {moe['own_ms']:.6f} ms; "
+        f"bound {bound:.6f} ms ({by}); composite softmax/topk/renormalise backward {moe['composite_ms']:.6f} "
+        f"ms, plain {moe['plain_ms']:.6f} ms (all by graph replay)")
     return [flash, rmsnorm, moe]
 
 
@@ -2286,55 +2294,60 @@ def run_train_glm4() -> list[dict[str, int]]:
     return [counts]
 
 
-def _train_step_pair(cfg, label: str, rows: int, seq: int, lr: float = 1e-3) -> dict[str, int]:
-    """One train step (loss, gradients, one AdamW update) of the same
-    weights and batch on the card and on the CPU.  Held: the loss to 1e-4
-    relative; the global gradient norm to 1e-4 relative; every gradient leaf
-    to 1e-3 of its largest |g| (float32 on both sides, the kernels summing
-    in other orders); the parameters after the step, which moves each by
-    lr·(g/(|g|+eps) + wd·p): to 1e-5 where the CPU's |g| is above 1e-2 of its
-    leaf's largest (the step's sign is settled there), and within 2·lr
-    elsewhere.  Returns the card step's launches."""
-    import numpy as np
+def train_step_card_and_cpu(cfg, tokens, labels, lr: float = 1e-3):
+    """One train step of the same weights (drawn on the card from seed 4)
+    and batch on the card and on the CPU, through the port's own step,
+    ``launch.train.make_train_step``; the gradients for the comparison are
+    taken first, by ``torch.autograd.grad`` of the same loss.  Returns each
+    side's (loss, gradient leaves, parameters after the step) and the
+    launches of the card's step."""
     import torch
 
     from repro_torch.kernels import ops
+    from repro_torch.launch.train import make_train_step
     from repro_torch.models import Model
-    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.optim import AdamWConfig, adamw_init
     from repro_torch.optim.adamw import leaves
 
-    rng = np.random.default_rng(4)
-    tokens = rng.integers(0, cfg.vocab_size, size=(rows, seq))
-    labels = rng.integers(0, cfg.vocab_size, size=(rows, seq))
-    labels[0, :5] = -1
     drawn = Model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(4))
-    side = {}
-    counts = {}
+    side, counts = {}, {}
     for dev in ("cuda", "cpu"):
         model = Model(cfg, device=dev)
-        params = _tree_copy(drawn, dev)
-        flat = leaves(params)
-        for t in flat:
+        params = _tree_copy(drawn, dev)  # the update is in place: each side its own copy
+        for t in leaves(params):
             t.requires_grad_(True)
         batch = {"tokens": torch.from_numpy(tokens).to(dev), "labels": torch.from_numpy(labels).to(dev)}
+        grads = torch.autograd.grad(model.loss(params, batch), leaves(params), allow_unused=True,
+                                    materialize_grads=True)
         opt = AdamWConfig(lr=lr, total_steps=10, warmup_steps=1)
         ops.reset_launch_counts()
-        # make_train_step's body, with the gradients kept for the comparison
-        loss = model.loss(params, batch)
-        grads = torch.autograd.grad(loss, flat, allow_unused=True, materialize_grads=True)
-        adamw_update(opt, params, list(grads), adamw_init(params))
+        params, _, loss = make_train_step(model, opt)(params, adamw_init(params), batch)
         if dev == "cuda":
             torch.cuda.synchronize()
             counts = ops.launch_counts()
-        gnorm = float(torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads)))
-        side[dev] = (float(loss.detach()), gnorm, [g.cpu() for g in grads], [t.detach().cpu() for t in flat])
-        del model, params, flat, grads
+        side[dev] = (float(loss), [g.cpu() for g in grads], [t.detach().cpu() for t in leaves(params)])
+        del model, params, grads
     del drawn
     _release()
-    (l1, n1, g1, p1), (l2, n2, g2, p2) = side["cuda"], side["cpu"]
-    grad_err = max(((a - b).abs().max() / max(1.0, b.abs().max().item())).item() for a, b in zip(g1, g2))
+    return side["cuda"], side["cpu"], counts
+
+
+def train_step_errors(card, cpu, lr: float) -> dict:
+    """How far the card's train step lies from the CPU's, and whether within
+    tolerance (``ok``): the loss to 1e-4 relative; the global gradient norm
+    to 1e-4 relative; every gradient leaf to 1e-3 of its largest |g| (at
+    least 1) (float32 on both sides, the kernels summing in other orders);
+    the parameters after the step, which moves each by lr·(g/(|g|+eps) +
+    wd·p): to 1e-5 relative where the CPU's |g| is above 1e-2 of its leaf's
+    largest (the step's sign is settled there), and within 2·lr elsewhere."""
+    import torch
+
+    (l1, g1, p1), (l2, g2, p2) = card, cpu
+    n1, n2 = (float(torch.sqrt(sum(torch.sum(g.float() ** 2) for g in gs))) for gs in (g1, g2))
+    grad_err = max(((a - b).abs().max() / max(1.0, b.abs().max().item())).item()
+                   for a, b in zip(g1, g2, strict=True))
     settled_err, loose_err, n_settled, n_all = 0.0, 0.0, 0, 0
-    for a, b, g in zip(p1, p2, g2):
+    for a, b, g in zip(p1, p2, g2, strict=True):
         settled = g.abs() > 1e-2 * g.abs().max()
         d = (a - b).abs()
         if settled.any():
@@ -2344,12 +2357,28 @@ def _train_step_pair(cfg, label: str, rows: int, seq: int, lr: float = 1e-3) -> 
         n_all += settled.numel()
     ok = (abs(l1 - l2) <= 1e-4 * abs(l2) and abs(n1 - n2) <= 1e-4 * abs(n2) and grad_err <= 1e-3
           and settled_err <= 1e-5 and loose_err <= 2 * lr + 1e-6)
+    return {"loss": (l1, l2), "grad_norm": (n1, n2), "grad_err": grad_err, "settled_err": settled_err,
+            "loose_err": loose_err, "settled": (n_settled, n_all), "ok": ok}
+
+
+def _train_step_pair(cfg, label: str, rows: int, seq: int, lr: float = 1e-3) -> dict[str, int]:
+    """T3/T4: :func:`train_step_card_and_cpu` on a seeded batch, held by
+    :func:`train_step_errors`.  Returns the card step's launches."""
+    import numpy as np
+
+    rng = np.random.default_rng(4)
+    tokens = rng.integers(0, cfg.vocab_size, size=(rows, seq))
+    labels = rng.integers(0, cfg.vocab_size, size=(rows, seq))
+    labels[0, :5] = -1
+    card, cpu, counts = train_step_card_and_cpu(cfg, tokens, labels, lr)
+    e = train_step_errors(card, cpu, lr)
+    (l1, l2), (n1, n2) = e["loss"], e["grad_norm"]
     log(f"{label}: one train step at ({rows}, {seq}), card vs CPU: loss {l1:.6f} vs {l2:.6f}, gradient "
-        f"norm {n1:.6f} vs {n2:.6f}, gradient leaves max err {grad_err:.3e} of the leaf's largest (tol "
-        f"1e-3); parameters after the AdamW step: {n_settled} of {n_all} with a settled sign, max err "
-        f"{settled_err:.3e} (tol 1e-5), all within {loose_err:.3e} (tol 2·lr = {2 * lr}); card launches "
-        f"{ {k: v for k, v in counts.items() if v} } {'ok' if ok else 'FAIL'}")
-    if not ok:
+        f"norm {n1:.6f} vs {n2:.6f}, gradient leaves max err {e['grad_err']:.3e} of the leaf's largest (tol "
+        f"1e-3); parameters after the AdamW step: {e['settled'][0]} of {e['settled'][1]} with a settled "
+        f"sign, max err {e['settled_err']:.3e} (tol 1e-5), all within {e['loose_err']:.3e} (tol 2·lr = "
+        f"{2 * lr}); card launches { {k: v for k, v in counts.items() if v} } {'ok' if e['ok'] else 'FAIL'}")
+    if not e["ok"]:
         raise SystemExit(f"{label}: the train step on the card disagrees with the CPU's")
     return counts
 
