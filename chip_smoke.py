@@ -36,8 +36,8 @@ Phases, each reported on its own lines; any failure exits non-zero:
    (float32 and bf16 caches), at InternVL2's group of 7 and in bf16/bf16 at
    MusicGen's group of 1, rmsnorm at Hymba's (2048, 1600); decode at head
    size 512 (xLSTM-1.3B's token path: a group of 1 in float32);
-3b. backward vs plain: each backward kernel, through the ``ops`` autograd
-   Functions, against autograd through its plain version on the same
+3b. backward vs plain: each backward kernel, through the ``ops``
+   operators' autograd formulas, against autograd through its plain version on the same
    inputs and output gradients (relative to the largest gradient: flash in
    float32 to 1e-4, RMSNorm's dx and the gates to 1e-5, RMSNorm's dscale to
    1e-4, bf16 to 2e-2): flash at the training shapes (orloj_gpt's, GLM-4's
@@ -107,7 +107,26 @@ Phases, each reported on its own lines; any failure exits non-zero:
    norm, every gradient leaf, the parameters after AdamW) at GLM-4's widths
    cut to 1 layer and a 512-word vocabulary, full-width orloj_gpt, Arctic
    ``.reduced(n_experts=16)`` and Hymba ``.reduced()``;
-14. one line per kernel and shape with the kernel's ratios to SDPA, to
+14. dryrun: ``repro_torch.launch.dryrun.run_one`` on the 16×16 production
+   mesh (a fake process group of 256 ranks; the DTensors' shards are meta
+   tensors, so nothing runs on the card) for GLM-4-9B × train_4k, Arctic ×
+   decode_32k and Nemotron-4-340B × prefill_32k: each result row, its
+   per-device FLOPs, bytes, collective bytes and memory, and whether its
+   peak fits 80 GB; fails if one does not lower;
+15. placement: the 1-device debug mesh (an NCCL group of one); GLM-4-9B at
+   full width cut to 4 layers (T2's model) with its parameters in DTensors
+   by ``param_specs`` (their shards alias the plain tensors): one step's
+   loss and gradients at (2, 1024) and six decode steps, each against the
+   same on plain tensors (T3's tolerances; logits to 1e-4 of the largest),
+   flash, its backward, RMSNorm, its backward and decode launched under
+   DTensor; then Arctic ``.reduced(n_experts=16)`` (T4's), which launches
+   the gates and their backward;
+16. memory: on the same mesh the dry-run's predicted peak of one train step
+   of T1 and of T2 against ``max_memory_allocated`` over the same step on
+   the card (from what was allocated before its parameters), held to 10%;
+17. op dispatch: the host's microseconds per call of each forward kernel
+   through its ``torch.library`` operator against the raw ctypes launcher;
+18. one line per kernel and shape with the kernel's ratios to SDPA, to
    their plain versions and to their bounds, then the ``kernels`` line
    (JSON): launches on the main paths, kernel, plain and library times,
    and the least time the card could take (for flash also on the tensor
@@ -758,8 +777,8 @@ def _autograd(fn, inputs, douts):
 
 
 def phase_backward_vs_plain() -> dict[str, float]:
-    """Each backward kernel, through the ``ops`` autograd Functions (forward
-    kernel, then backward kernel), against autograd through the plain
+    """Each backward kernel, through the ``ops`` operators' autograd formulas
+    (forward kernel, then backward kernel), against autograd through the plain
     version on the same inputs and output gradients: flash attention at the
     training paths' shapes (orloj_gpt, GLM-4's GQA 16:1 at S 1024, Hymba's
     window, Arctic's group of 7) and at head sizes 16, 64, 128 and 192, with
@@ -2224,6 +2243,7 @@ def _train_phase(cfg, label: str, must_launch: tuple[str, ...], **kw) -> tuple[d
     counts = ops.launch_counts()
     secs = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
+    TRAIN_PEAKS[label[label.index("(") + 1:label.index(")")]] = peak
     step_ms, data_ms = rec["step_ms"], rec["data_ms"]
     steady = sorted(step_ms[1:] or step_ms)
     share = sum(data_ms[1:] or data_ms) / sum(step_ms[1:] or step_ms)
@@ -2426,6 +2446,292 @@ def run_train_card_vs_cpu() -> list[dict[str, int]]:
     return windows
 
 
+# The dry-run phase: three (arch × shape) combinations on the 16×16
+# production mesh, over a fake process group (nothing runs on the card).
+DRYRUN_CASES = (("glm4_9b", "train_4k"), ("arctic_480b", "decode_32k"), ("nemotron_4_340b", "prefill_32k"))
+TRAIN_PEAKS: dict[str, int] = {}  # T1's and T2's peak memory in train(), bytes
+MEMORY_TOL = 0.10  # the dry-run's predicted peak against the card's
+
+
+def run_dryrun() -> None:
+    """Dry-run phase: ``launch.dryrun.run_one`` for each of DRYRUN_CASES on
+    the 16×16 production mesh; each result row, its per-device memory and
+    whether its peak fits 80 GB.  Fails if one does not lower."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import destroy_fake_world
+
+    try:
+        for arch, shape in DRYRUN_CASES:
+            r = dryrun.run_one(arch, shape, False, save=False)
+            log(f"dryrun: {r.row()}")
+            if not r.ok:
+                raise SystemExit(f"dryrun {arch} {shape} did not lower:\n{r.error}")
+            mem = r.per_device_memory
+            log(f"dryrun {arch} {shape} 16x16: per-device memory {mem}: peak "
+                f"{mem['peak_memory_in_bytes'] / 1e9:.2f} GB, {'fits' if r.fits else 'does NOT fit'} 80 GB; "
+                f"FLOPs {r.flops:.6e}, bytes {r.bytes_accessed:.6e}, collective bytes {r.collective_bytes}")
+    finally:
+        destroy_fake_world()
+
+
+def _grads_held(label: str, plain, dist) -> dict:
+    """T3's tolerances between a plain step's (loss, gradient leaves) and a
+    DTensor step's: the loss and the global gradient norm to 1e-4 relative,
+    every leaf to 1e-3 of its largest |g| (at least 1)."""
+    import torch
+
+    (l1, g1), (l2, g2) = plain, dist
+    n1, n2 = (float(torch.sqrt(sum(torch.sum(g.float() ** 2) for g in gs))) for gs in (g1, g2))
+    err = max(((a - b).abs().max() / max(1.0, a.abs().max().item())).item() for a, b in zip(g1, g2, strict=True))
+    ok = abs(l1 - l2) <= 1e-4 * abs(l1) and abs(n1 - n2) <= 1e-4 * abs(n1) and err <= 1e-3
+    log(f"{label}: loss {l1:.6f} plain vs {l2:.6f} DTensor, gradient norm {n1:.6f} vs {n2:.6f}, "
+        f"{len(g1)} gradient leaves max err {err:.3e} of the leaf's largest (tol 1e-3) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{label}: the DTensor step disagrees with the plain one")
+    return {"loss": (l1, l2), "grad_err": err}
+
+
+def _loss_and_grads(model, params, batch):
+    import torch
+
+    from repro_torch.optim.adamw import leaves
+
+    loss = model.loss(params, batch)
+    grads = torch.autograd.grad(loss, leaves(params), allow_unused=True, materialize_grads=True)
+    loss = loss.detach()
+    return float(loss.full_tensor() if hasattr(loss, "full_tensor") else loss), grads
+
+
+def _dtensor_train_pair(cfg, label: str, rows: int, seq: int, mesh, must_launch) -> dict[str, int]:
+    """One step's loss and gradients of ``cfg`` on plain tensors, then on the
+    same weights as DTensors placed by ``param_specs`` on ``mesh`` (their
+    shards alias the plain tensors: nothing is updated), held by
+    :func:`_grads_held`.  Returns the DTensor step's launches, which must
+    include ``must_launch``."""
+    import numpy as np
+    import torch
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model
+    from repro_torch.models.sharding import input_batch_specs, param_specs, place
+    from repro_torch.optim.adamw import leaves
+
+    model = Model(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(4))
+    for t in leaves(params):
+        t.requires_grad_(True)
+    rng = np.random.default_rng(4)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(rows, seq))).cuda()
+             for k in ("tokens", "labels")}
+    loss, grads = _loss_and_grads(model, params, batch)
+    plain = (loss, [g.cpu() for g in grads])
+    del grads
+    _release()
+    dparams = place(params, mesh, param_specs(cfg, params, mesh))
+    dbatch = place(batch, mesh, input_batch_specs(cfg, mesh, batch, rows))
+    ops.reset_launch_counts()
+    with implicit_replication():
+        loss, grads = _loss_and_grads(model, dparams, dbatch)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    dist = (loss, [g.full_tensor().cpu() for g in grads])
+    del grads, dparams, params
+    _release()
+    _grads_held(f"{label}: one train step at ({rows}, {seq})", plain, dist)
+    log(f"{label}: DTensor step launches { {k: v for k, v in counts.items() if v} }")
+    for name in must_launch:
+        if counts[name] <= 0:
+            raise SystemExit(f"{label}: the DTensor step launched no {name} kernel")
+    return counts
+
+
+def _dtensor_decode_pair(cfg, label: str, mesh) -> dict[str, int]:
+    """Decode steps of the same weights and tokens on plain tensors and on
+    DTensors (parameters by ``param_specs``, the cache by ``cache_specs``),
+    the logits held to 1e-4 of the largest; returns the DTensor run's
+    launches (the decode kernel must be among them)."""
+    import numpy as np
+    import torch
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model
+    from repro_torch.models.sharding import cache_specs, input_batch_specs, param_specs, place
+
+    model = Model(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(5))
+    rows, steps = 2, 6
+    toks = torch.from_numpy(np.random.default_rng(5).integers(0, cfg.vocab_size, size=(rows, steps))).cuda()
+    with torch.no_grad():
+        cache = model.init_cache(rows, cache_len=64)
+        plain = [model.decode_step(params, toks[:, i:i + 1], cache, i)[0].float() for i in range(steps)]
+        dparams = place(params, mesh, param_specs(cfg, params, mesh))
+        cache = model.init_cache(rows, cache_len=64)
+        dcache = place(cache, mesh, cache_specs(cfg, mesh, cache, rows, seq_shard=False))
+        ops.reset_launch_counts()
+        got = []
+        with implicit_replication():
+            for i in range(steps):
+                tok = {"t": toks[:, i:i + 1]}
+                tok = place(tok, mesh, input_batch_specs(cfg, mesh, tok, rows))["t"]
+                got.append(model.decode_step(dparams, tok, dcache, i)[0].full_tensor().float())
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+    err = max(((a - b).abs().max() / a.abs().max()).item() for a, b in zip(plain, got))
+    ok = err <= 1e-4
+    log(f"{label}: {steps} decode steps of ({rows}, 1), DTensor vs plain logits max err {err:.3e} of the "
+        f"largest (tol 1e-4) {'ok' if ok else 'FAIL'}; DTensor launches { {k: v for k, v in counts.items() if v} }")
+    if not ok or counts["decode_attention"] <= 0:
+        raise SystemExit(f"{label}: the DTensor decode steps disagree or launched no decode kernel")
+    del params, dparams, cache, dcache
+    _release()
+    return counts
+
+
+def run_placement() -> list[dict[str, int]]:
+    """Placement on the card: the 1-device debug mesh (an NCCL group of one),
+    GLM-4-9B at full width cut to GLM_TRAIN_LAYERS layers (T2's model) with
+    its parameters in DTensors by ``param_specs``: one train step at (2,
+    1024) and six decode steps, each against the same on plain tensors;
+    then Arctic ``.reduced(n_experts=16)`` (T4's), whose step reaches the
+    gates.  The DTensor runs' launches are their windows."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.glm4_9b import CONFIG as GLM
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    mesh = make_debug_mesh()
+    log(f"placement: debug mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} over "
+        f"{mesh.device_type} (a process group of one)")
+    glm = dataclasses.replace(GLM, n_layers=GLM_TRAIN_LAYERS)
+    return [
+        _dtensor_train_pair(glm, "placement glm4 (T2's model, DTensor)", TRAIN_T2["batch"], TRAIN_T2["seq"],
+                            mesh, ("flash_attention", "flash_attention_bwd", "rmsnorm", "rmsnorm_bwd")),
+        _dtensor_decode_pair(glm, "placement glm4 decode (DTensor)", mesh),
+        _dtensor_train_pair(get_config("arctic_480b").reduced(n_experts=16), "placement arctic (T4's, DTensor)",
+                            2, 96, mesh, ("moe_gating", "moe_gating_bwd", "flash_attention_bwd")),
+    ]
+
+
+def _train_step_peak(cfg, rows: int, seq: int) -> int:
+    """The card's peak bytes over one ``make_train_step`` step of ``cfg`` at
+    (rows, seq), counted from what was allocated before its parameters:
+    the parameters, the AdamW moments and the batch, then the step."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim.adamw import leaves
+
+    _release()
+    base = torch.cuda.memory_allocated()
+    model = Model(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    for t in leaves(params):
+        t.requires_grad_(True)
+    opt = adamw_init(params)
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(rows, seq))).cuda()
+             for k in ("tokens", "labels")}
+    torch.cuda.reset_peak_memory_stats()
+    make_train_step(model, AdamWConfig())(params, opt, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del model, params, opt, batch
+    _release()
+    return peak
+
+
+def run_memory_prediction() -> None:
+    """The dry-run's memory against the card's: on the 1-device debug mesh,
+    the dry-run's predicted peak of one train step of T1 (orloj_gpt at (8,
+    256)) and T2 (GLM-4-9B cut to GLM_TRAIN_LAYERS layers at (2, 1024))
+    against the peak of the same step on the card, held to MEMORY_TOL.
+    What the fake implementations do not allocate (the flash backward's
+    (B, H, S) float32 row sums, the RMSNorm backward's per-block partials,
+    cuBLAS's workspace) is in the card's peak only."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import InputShape
+    from repro_torch.configs.glm4_9b import CONFIG as GLM
+    from repro_torch.configs.orloj_gpt import CONFIG as GPT
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    mesh = make_debug_mesh()
+    try:
+        for label, cfg, t in (("T1", GPT, TRAIN_T1), ("T2", dataclasses.replace(GLM, n_layers=GLM_TRAIN_LAYERS),
+                                                         TRAIN_T2)):
+            res, _ = dryrun.dry_run(cfg, InputShape(label, "train", t["seq"], t["batch"]), mesh)
+            if not res.ok:
+                raise SystemExit(f"memory {label}: the dry-run failed:\n{res.error}")
+            predicted = res.per_device_memory["peak_memory_in_bytes"]
+            measured = _train_step_peak(cfg, t["batch"], t["seq"])
+            rel = (predicted - measured) / measured
+            ok = abs(rel) <= MEMORY_TOL
+            log(f"memory {label}: {cfg.name} at ({t['batch']}, {t['seq']}): dry-run peak {predicted} bytes "
+                f"({predicted / 2**30:.3f} GiB; arguments {res.per_device_memory['argument_size_in_bytes']}, "
+                f"temporaries {res.per_device_memory['temp_size_in_bytes']}) against the card's "
+                f"max_memory_allocated over the same step {measured} bytes ({measured / 2**30:.3f} GiB): "
+                f"{rel:+.4f} (tol ±{MEMORY_TOL}) {'ok' if ok else 'FAIL'}; the train() run's peak "
+                f"{TRAIN_PEAKS.get(label)} bytes")
+            if not ok:
+                raise SystemExit(f"memory {label}: the dry-run's peak is off the card's by {rel:+.4f}")
+    finally:
+        dist.destroy_process_group()
+
+
+def run_op_dispatch() -> None:
+    """The host's cost of a kernel call through its ``torch.library``
+    operator against the raw ctypes launcher it wraps: the four forwards at
+    small shapes, 500 calls in a row each way (the host's clock over the
+    calls alone, then a synchronise), in turns, best of 5."""
+    import torch
+
+    from repro_torch.kernels import decode_attention as dec_mod
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import moe_gating as gating_mod
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rmsnorm as rms_mod
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    q, k = (torch.randn((1, 2, 32, 64), generator=g, device="cuda") for _ in range(2))
+    qd, vl = q[:, :, 0].contiguous(), torch.full((1,), 32, dtype=torch.int32, device="cuda")
+    x, w = torch.randn((8, 768), generator=g, device="cuda"), torch.ones(768, device="cuda")
+    logits = torch.randn((16, 128), generator=g, device="cuda")
+    pairs = {
+        "flash_attention": (lambda: ops.flash_attention(q, k, k), lambda: fa_mod.flash_attention_cuda(q, k, k)),
+        "decode_attention": (lambda: ops.decode_attention(qd, k, k, vl),
+                             lambda: dec_mod.decode_attention_cuda(qd, k, k, vl)),
+        "rmsnorm": (lambda: ops.rmsnorm(x, w), lambda: rms_mod.rmsnorm_cuda(x, w)),
+        "moe_gating": (lambda: ops.moe_gating(logits, 2), lambda: gating_mod.moe_gating_cuda(logits, 2)),
+    }
+
+    def per_call(fn, n=500) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        t = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return t / n * 1e6
+
+    with torch.no_grad():
+        for name, (op, raw) in pairs.items():
+            op(), raw()
+            best = {"op": math.inf, "raw": math.inf}
+            for _ in range(5):
+                best["op"] = min(best["op"], per_call(op))
+                best["raw"] = min(best["raw"], per_call(raw))
+            log(f"op dispatch {name}: {best['op']:.2f} us a call through the operator, {best['raw']:.2f} us "
+                f"through the raw launcher: {best['op'] - best['raw']:+.2f} us a call (host clock, best of 5 × "
+                f"500 calls)")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2471,6 +2777,10 @@ def main() -> int:
                + timed("engine-smoke", run_engine_smoke)
                + timed("train orloj_gpt", run_train_orloj_gpt) + timed("train glm4", run_train_glm4)
                + timed("train card vs CPU", run_train_card_vs_cpu))
+    timed("dryrun", run_dryrun)
+    windows += timed("placement", run_placement)
+    timed("memory", run_memory_prediction)
+    timed("op dispatch", run_op_dispatch)
     counts = {name: sum(w[name] for w in windows) for name in _build.KERNELS}
 
     kernels = timed("kernel line", phase_kernel_line, counts, errs)

@@ -23,6 +23,7 @@ import torch
 
 from ..models.config import ModelConfig
 from ..models.convert import from_numpy, reference_tree, to_numpy
+from ..models.sharding import full_tensor, place
 
 _SEP = "§"
 
@@ -52,10 +53,11 @@ def _unflatten(like: Any, values: dict[str, Any], prefix: tuple[str, ...] = ()) 
 
 
 def save_checkpoint(ckpt_dir: str | Path, step: int, params: Any, cfg: ModelConfig) -> Path:
-    """Write the port's ``params`` of model ``cfg`` as step ``step``."""
+    """Write the port's ``params`` of model ``cfg`` as step ``step`` (DTensor
+    leaves gathered whole first)."""
     ckpt_dir = Path(ckpt_dir)
     ckpt_dir.mkdir(parents=True, exist_ok=True)
-    flat = _flatten(to_numpy(params, cfg))
+    flat = _flatten(to_numpy(full_tensor(params), cfg))
     path = ckpt_dir / f"step_{step:08d}.npz"
     np.savez(path, **flat)
     desc = f"repro_torch {cfg.name}: {len(flat)} leaves: " + ", ".join(sorted(flat))
@@ -75,12 +77,16 @@ def latest_step(ckpt_dir: str | Path) -> int | None:
 
 def restore_checkpoint(
     ckpt_dir: str | Path, step: int, like: Any, cfg: ModelConfig, *,
-    device: str | torch.device | None = None,
+    device: str | torch.device | None = None, shardings: Any | None = None, mesh=None,
 ) -> Any:
     """The parameters of step ``step``, in the structure of ``like`` (the
     port's parameters of model ``cfg``), on ``device`` (default: like's).
-    Raises on a missing key (KeyError) or a shape other than like's
-    (ValueError), as the reference does."""
+    With ``shardings``, a tree of specs matching ``like`` (as
+    :func:`repro_torch.models.sharding.param_specs` gives them), each leaf
+    is placed on the device ``mesh`` instead, each rank keeping its own
+    shard; the file holds whole leaves, so a checkpoint written under one
+    mesh restores under another.  Raises on a missing key (KeyError) or a
+    shape other than like's (ValueError), as the reference does."""
     path = Path(ckpt_dir) / f"step_{step:08d}.npz"
     shapes = reference_tree(like, cfg, lambda t: tuple(t.shape),
                             lambda s: (len(s), *s[0]))
@@ -92,6 +98,10 @@ def restore_checkpoint(
             if arr.shape != shape:
                 raise ValueError(f"shape mismatch for {key}: {arr.shape} vs {shape}")
             values[key] = arr
+    if shardings is not None:
+        if mesh is None:
+            raise ValueError("shardings need the device mesh they are specs on")
+        return place(from_numpy(_unflatten(shapes, values), cfg, device="cpu"), mesh, shardings)
     if device is None:
         device = next(iter(_flatten(like).values())).device
     return from_numpy(_unflatten(shapes, values), cfg, device=device)

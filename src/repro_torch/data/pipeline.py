@@ -7,8 +7,8 @@ their source to the reference's).  The corpus draws every token on the
 host, a Zipf unigram draw (``rng.choice`` over the vocabulary) or a Markov
 continuation, so its time grows with the vocabulary; it is the reference's
 stream, and stays as it is.  :func:`make_train_iterator` yields the
-batches as int64 tensors on one device, where the reference places them
-on its mesh.
+batches as int64 tensors on one device, or, given a device mesh, placed
+on it as the reference places them.
 """
 
 from __future__ import annotations
@@ -62,12 +62,22 @@ class SyntheticCorpus:
 
 
 def make_train_iterator(
-    cfg: DataConfig, device: str | torch.device = "cuda"
+    cfg: DataConfig, device: str | torch.device = "cuda", *, mesh=None
 ) -> Iterator[dict[str, torch.Tensor]]:
     """The corpus's batches, ``tokens`` and ``labels`` (batch, seq_len)
-    int64, on ``device`` (the card unless the caller asks for the CPU)."""
-    dev = resolve_device(device)
+    int64, on ``device`` (the card unless the caller asks for the CPU).
+    With a device ``mesh``, each batch is a pair of DTensors on it instead,
+    the batch over (pod, data) as the reference places it (each rank keeps
+    its own rows)."""
     corpus = SyntheticCorpus(cfg)
+    if mesh is not None:
+        from ..models.sharding import batch_spec, place
+
+        spec = batch_spec(None, mesh, cfg.batch_size, 2)
+        while True:
+            b = {k: torch.from_numpy(v.astype(np.int64)) for k, v in corpus.batch().items()}
+            yield place(b, mesh, {k: spec for k in b})
+    dev = resolve_device(device)
     while True:
         b = corpus.batch()
         yield {k: torch.from_numpy(v.astype(np.int64)).to(dev) for k, v in b.items()}

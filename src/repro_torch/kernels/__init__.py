@@ -6,8 +6,10 @@ Each kernel ships:
 - ``<name>.py`` — the ctypes binding: input checks, output allocation,
   the launch on PyTorch's current stream, and a count of launches;
 - ``ref.py`` — the plain PyTorch version of the same function;
-- ``ops.py`` — the public wrappers: CPU tensors take the plain version,
-  CUDA tensors the kernel.
+- ``ops.py`` — the kernels as ``torch.library`` operators (CUDA
+  implementation, fake implementation, autograd and FLOP formulas,
+  DTensor sharding rules) and the public wrappers: CPU tensors take the
+  plain version, CUDA (and meta) tensors the operator.
 
 The kernels: ``flash_attention``, ``decode_attention``, ``rmsnorm`` and
 ``moe_gating``.  The wrappers are not re-exported here, so that

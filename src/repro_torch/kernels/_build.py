@@ -13,10 +13,11 @@ package on hosts without ``nvcc``.
 :func:`refuse_autograd` is the raw launchers' shared guard: a launcher
 writes into a fresh tensor that autograd does not track, so a launch on
 inputs that need a gradient raises instead of handing back a tensor that
-carries no graph.  :mod:`.ops` differentiates flash attention, RMSNorm and
-the gates through ``torch.autograd.Function`` subclasses whose forwards launch
-under no_grad and whose backwards are the ``*_bwd`` kernels; the decode
-kernel has no backward.
+carries no graph.  :mod:`.ops` makes each kernel a ``torch.library``
+operator and differentiates flash attention, RMSNorm and the gates through
+the operators' autograd formulas, whose forwards launch below autograd and
+whose backwards are the ``*_bwd`` operators; the decode kernel has no
+backward.
 """
 
 from __future__ import annotations

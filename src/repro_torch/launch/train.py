@@ -6,11 +6,15 @@ lines: config → model → data pipeline → AdamW → checkpoints.  Without
 ``--full`` it trains the arch's ``reduced()`` variant with a vocabulary of
 at most 8192, as the reference does.  It runs on the card (``--device
 cuda``, the default, raises without one); ``--device cpu`` runs the plain
-PyTorch path.  On one device every parameter lies on it: the reference's
-sharding (``param_specs``, the debug mesh) has no counterpart yet, and the
-header names the device where the reference names its mesh.  The step is
-eager: ``Model.loss``, ``torch.autograd.grad`` (through the backward
-kernels on the card), then the in-place AdamW update.
+PyTorch path.  As the reference, it lays the parameters and the batches
+out on the debug mesh by ``param_specs`` and the batch spec, and its
+header names the mesh: launched as one process per card (``torchrun``,
+which sets up the process group), the parameters and batches are
+DTensors on :func:`.mesh.make_debug_mesh`; in a process of its own it
+has one device, the (1, 1) mesh, on which every spec resolves to
+``None``, so the loop keeps plain tensors and builds no process group.
+The step is eager: ``Model.loss``, ``torch.autograd.grad`` (through the
+backward kernels on the card), then the in-place AdamW update.
 
 A restore from ``--ckpt-dir`` resumes the parameters only, with a fresh
 optimizer state and the data stream from its start, as the reference's
@@ -26,6 +30,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from ..configs import get_config
@@ -33,8 +38,10 @@ from ..data import DataConfig, make_train_iterator
 from ..device import resolve_device
 from ..models import Model
 from ..models.config import ModelConfig
+from ..models.sharding import param_specs, place
 from ..optim import AdamWConfig, adamw_init, adamw_update
 from ..optim.adamw import leaves
+from .mesh import make_debug_mesh
 
 
 def make_train_step(model: Model, opt_cfg: AdamWConfig):
@@ -81,23 +88,30 @@ def train(
         raise SystemExit(f"{cfg.name} needs frontend embeddings; use the dry-run or serve driver")
     dev = resolve_device(device)
     model = Model(cfg, device=dev)
-    print(f"arch={cfg.name} params≈{cfg.n_params_estimate/1e6:.1f}M device={_device_name(dev)}")
+    multi = dist.is_initialized() and dist.get_world_size() > 1
+    mesh = make_debug_mesh(device_type=dev.type) if multi else None
+    axes = dict(zip(mesh.mesh_dim_names, mesh.shape)) if mesh else {"data": 1, "model": 1}
+    print(f"arch={cfg.name} params≈{cfg.n_params_estimate/1e6:.1f}M mesh={axes} "
+          f"device={_device_name(dev)}")
 
     params = model.init(torch.Generator(device=dev).manual_seed(0))
+    specs = param_specs(cfg, params, mesh) if mesh else None
+    if mesh:
+        params = place(params, mesh, specs)
     for p in leaves(params):
         p.requires_grad_(True)
     opt_cfg = AdamWConfig(lr=lr, total_steps=steps, warmup_steps=max(steps // 10, 1))
     opt_state = adamw_init(params)
 
     data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, batch_size=batch)
-    it = make_train_iterator(data_cfg, dev)
+    it = make_train_iterator(data_cfg, dev, mesh=mesh)
     train_step = make_train_step(model, opt_cfg)
 
     start = 0
     if ckpt_dir:
         got = latest_step(ckpt_dir)
         if got is not None:
-            params = restore_checkpoint(ckpt_dir, got, params, cfg)
+            params = restore_checkpoint(ckpt_dir, got, params, cfg, shardings=specs, mesh=mesh)
             for p in leaves(params):
                 p.requires_grad_(True)
             start = got

@@ -17,6 +17,7 @@ import torch
 from . import moe as moe_lib
 from . import ssm
 from .config import ModelConfig
+from .sharding import tp_only_layout
 from .layers import (
     DecodeSlot,
     attention_apply,
@@ -76,7 +77,12 @@ def _hymba_mix(params: Params, attn_out: torch.Tensor, ssm_out: torch.Tensor) ->
 def block_apply(
     params: Params, x: torch.Tensor, cfg: ModelConfig, layer_idx: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward.  Returns (x, aux_loss); aux is 0 without MoE."""
+    """Full-sequence forward.  Returns (x, aux_loss); aux is 0 without MoE.
+    With ``cfg.fsdp_weight_gather`` the block's DTensor weights first take
+    their tensor-parallel-only layout (gathered over ``data``), as the
+    reference constrains them."""
+    if cfg.fsdp_weight_gather:
+        params = tp_only_layout(params)
     kind = block_kind(cfg, layer_idx)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     h = norm_apply(params["norm1"], x, cfg.norm)

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..kernels import ops
+from .sharding import embedding, linear, merge_heads, write_slot
 
 Params = dict[str, Any]
 
@@ -102,8 +103,7 @@ def init_attention(gen: torch.Generator, d: int, n_heads: int, n_kv: int, head_d
 
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x: (..., d) @ w: (d, heads, hd) → (..., heads, hd)."""
-    d, heads, hd = w.shape
-    return (x @ w.to(x.dtype).reshape(d, heads * hd)).unflatten(-1, (heads, hd))
+    return linear(x, w.to(x.dtype))
 
 
 def attention_apply(
@@ -138,9 +138,7 @@ def attention_apply(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         causal=True, window=sliding_window, softcap=softcap,
     )
-    h, hd = q.shape[2], q.shape[3]
-    ctx = ctx.transpose(1, 2).reshape(b, s, h * hd)
-    return ctx @ params["wo"].to(x.dtype).reshape(h * hd, -1)
+    return merge_heads(ctx.transpose(1, 2), params["wo"].to(x.dtype))
 
 
 def init_kv_cache(
@@ -233,11 +231,9 @@ def attention_decode(
     q = rope_apply(q, at.sin, at.cos)
     k = rope_apply(k, at.sin, at.cos)
     for name, new in (("k", k), ("v", v)):
-        cache[name].index_copy_(2, at.slot, new.transpose(1, 2).to(cache[name].dtype))
+        write_slot(cache[name], at.slot, new.transpose(1, 2).to(cache[name].dtype))
     ctx = ops.decode_attention(q[:, 0], cache["k"], cache["v"], at.valid_len, softcap=softcap)
-    h, hd = q.shape[2], q.shape[3]
-    out = ctx.reshape(b, 1, h * hd) @ params["wo"].to(x.dtype).reshape(h * hd, -1)
-    return out, cache
+    return merge_heads(ctx, params["wo"].to(x.dtype))[:, None], cache
 
 
 # ------------------------------------------------------------------ mlp
@@ -261,17 +257,17 @@ def mlp_apply(params: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
     if kind == "none":
         return torch.zeros_like(x)
     if kind == "swiglu":
-        g = x @ params["w_gate"].to(dtype)
-        u = x @ params["w_up"].to(dtype)
-        return (F.silu(g) * u) @ params["w_down"].to(dtype)
-    u = x @ params["w_up"].to(dtype)
+        g = linear(x, params["w_gate"].to(dtype))
+        u = linear(x, params["w_up"].to(dtype))
+        return linear(F.silu(g) * u, params["w_down"].to(dtype))
+    u = linear(x, params["w_up"].to(dtype))
     if kind == "gelu":
         u = F.gelu(u, approximate="tanh")  # jax.nn.gelu's default
     elif kind == "relu2":  # Nemotron-4 squared ReLU
         u = F.relu(u).square()
     else:
         raise ValueError(kind)
-    return u @ params["w_down"].to(dtype)
+    return linear(u, params["w_down"].to(dtype))
 
 
 # ------------------------------------------------------------ embedding
@@ -287,10 +283,11 @@ def embed_apply(params: Params, tokens: torch.Tensor, dtype: torch.dtype) -> tor
     # vocabulary).
     tokens = torch.where(tokens < 0, tokens + vocab, tokens).clamp(0, vocab - 1)
     # Gather, then cast: the same values as casting the whole table first.
-    return table[tokens].to(dtype)
+    # A vocabulary-sharded DTensor table is looked up shard by shard.
+    return embedding(table, tokens).to(dtype)
 
 
 def unembed_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
     """Tied head: x (..., d) against the embedding table (vocab, d)."""
-    return x @ params["table"].to(x.dtype).T
+    return linear(x, params["table"].to(x.dtype).T)
 

@@ -42,6 +42,7 @@ from torch.utils import checkpoint as ckpt
 from ..device import resolve_device
 from .blocks import block_apply, block_decode, init_block, init_block_cache
 from .config import ModelConfig
+from .sharding import gather_last, linear
 from .layers import (
     DecodeSlot,
     _init,
@@ -116,7 +117,7 @@ class Model(nn.Module):
         )
 
     def _project_frontend(self, params: Params, embeds: torch.Tensor) -> torch.Tensor:
-        return embeds.to(self.dtype) @ params["frontend_proj"].to(self.dtype)
+        return linear(embeds.to(self.dtype), params["frontend_proj"].to(self.dtype))
 
     def _embed_inputs(self, params: Params, batch: dict[str, torch.Tensor]) -> torch.Tensor:
         """The stack's input: the projected frontend embeddings (vision: a
@@ -153,7 +154,7 @@ class Model(nn.Module):
     def _head(self, params: Params, h: torch.Tensor) -> torch.Tensor:
         if self.cfg.tie_embeddings:
             return unembed_apply(params["embed"], h)
-        return h @ params["lm_head"].to(h.dtype)
+        return linear(h, params["lm_head"].to(h.dtype))
 
     def logits(self, params: Params, batch: dict[str, torch.Tensor]) -> torch.Tensor:
         h, _ = self.hidden_states(params, batch)
@@ -175,7 +176,7 @@ class Model(nn.Module):
         def xent(h_slice, labels_slice, mask_slice):
             logits = self._head(params, h_slice).float()
             logz = torch.logsumexp(logits, dim=-1)
-            gold = logits.gather(-1, labels_slice[..., None])[..., 0]
+            gold = gather_last(logits, labels_slice)
             return ((logz - gold) * mask_slice).sum()
 
         if cfg.loss_chunk and h.shape[1] > cfg.loss_chunk:

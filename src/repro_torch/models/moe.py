@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from ..kernels import ops, ref
 from .layers import _init
+from .sharding import embedding, like_experts, linear
 
 Params = dict[str, Any]
 
@@ -61,7 +62,7 @@ def moe_apply(
     n_experts = params["router"].shape[1]
     t = bsz * s
     xt = x.reshape(t, d)
-    logits = (xt @ params["router"].to(dtype)).float()
+    logits = linear(xt, params["router"].to(dtype)).float()
     gate_vals, expert_ids = ops.moe_gating(logits, top_k)  # (T, k) each
 
     # Load-balance loss, from the full softmax (the gating kernel returns
@@ -74,28 +75,30 @@ def moe_apply(
     r = t * top_k
     flat_experts = expert_ids.reshape(r).long()
     flat_gates = gate_vals.reshape(r).to(dtype)
-    flat_tokens = torch.arange(t, device=x.device).repeat_interleave(top_k)
     onehot = F.one_hot(flat_experts, n_experts)  # (R, E)
     pos_in_e = (onehot.cumsum(0) - onehot).gather(1, flat_experts[:, None])[:, 0]
     cap = capacity(t, top_k, n_experts, capacity_factor)
     keep = pos_in_e < cap
     slot = torch.where(keep, flat_experts * cap + pos_in_e, n_experts * cap)
 
-    # Scatter tokens into an (E·C + 1 dump row, d) buffer.
+    # Scatter tokens into an (E·C + 1 dump row, d) buffer.  Assignment i is
+    # token i // k's, so its row is token-major xt repeated k times (a view
+    # of xt, not an index: a batch-sharded xt stays sharded).
+    rows = xt[:, None].expand(t, top_k, d).reshape(r, d)
     buf = torch.zeros((n_experts * cap + 1, d), dtype=dtype, device=x.device)
-    buf.index_add_(0, slot, xt[flat_tokens])
-    xb = buf[: n_experts * cap].reshape(n_experts, cap, d)
+    buf = buf.index_add(0, slot, rows)
+    xb = like_experts(buf[: n_experts * cap].reshape(n_experts, cap, d), params["w_gate"])
 
     # Expert FFN (SwiGLU), dense per-expert products.
     g = torch.bmm(xb, params["w_gate"].to(dtype))
     u = torch.bmm(xb, params["w_up"].to(dtype))
     yb = torch.bmm(F.silu(g) * u, params["w_down"].to(dtype))
 
-    # Gather back and combine with the gates.
+    # Gather back (a row lookup, shard by shard over an expert-sharded
+    # buffer) and combine each token's k rows with its gates.
     yflat = yb.reshape(n_experts * cap, d)
-    y_rows = torch.where(keep[:, None], yflat[slot.clamp(max=n_experts * cap - 1)], 0.0)
-    y = torch.zeros((t, d), dtype=dtype, device=x.device)
-    y.index_add_(0, flat_tokens, y_rows * flat_gates[:, None])
+    y_rows = torch.where(keep[:, None], embedding(yflat, slot.clamp(max=n_experts * cap - 1)), 0.0)
+    y = (y_rows * flat_gates[:, None]).reshape(t, top_k, d).sum(1)
     return y.reshape(bsz, s, d), aux
 
 

@@ -26,6 +26,7 @@ No kernel backs these cells in the reference (it computes them in
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any
 
@@ -34,6 +35,7 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from .layers import _init, _project
+from .sharding import by_batch_and_heads, by_rows, by_rows_and_channels, linear
 
 Params = dict[str, Any]
 
@@ -103,32 +105,36 @@ def _mamba_gates(params: Params, xc: torch.Tensor) -> tuple[torch.Tensor, ...]:
     projections of the convolved input xc (..., d)."""
     dtype = xc.dtype
     dt = F.softplus(
-        (xc @ params["w_dt_lo"].to(dtype)) @ params["w_dt_hi"].to(dtype)
+        linear(linear(xc, params["w_dt_lo"].to(dtype)), params["w_dt_hi"].to(dtype))
         + params["dt_bias"].to(dtype)
     )
     a = torch.exp(-torch.exp(params["a_log"].float()) * dt[..., None].float())
-    return dt, a, xc @ params["w_b"].to(dtype), xc @ params["w_c"].to(dtype)
+    return dt, a, linear(xc, params["w_b"].to(dtype)), linear(xc, params["w_c"].to(dtype))
+
+
+def _causal_conv(xb: torch.Tensor, conv: torch.Tensor) -> torch.Tensor:
+    """The causal depthwise convolution of xb (B, S, d) with conv (w, d)."""
+    s, w = xb.shape[1], conv.shape[0]
+    pad = F.pad(xb, (0, 0, w - 1, 0))  # causal: w − 1 zero rows before the sequence
+    return sum(pad[:, i : i + s] * conv[i] for i in range(w))
 
 
 def mamba_apply(params: Params, x: torch.Tensor, chunk: int = 256) -> torch.Tensor:
     """x: (B, S, d) → (B, S, d)."""
     dtype = x.dtype
-    s = x.shape[1]
-    xb = x @ params["in_x"].to(dtype)
-    z = x @ params["in_z"].to(dtype)
-    conv = params["conv"].to(dtype)
-    w = conv.shape[0]
-    pad = F.pad(xb, (0, 0, w - 1, 0))  # causal: w − 1 zero rows before the sequence
-    xc = sum(pad[:, i : i + s] * conv[i] for i in range(w))
-    xc = F.silu(xc)
+    xb = linear(x, params["in_x"].to(dtype))
+    z = linear(x, params["in_z"].to(dtype))
+    xc = F.silu(by_rows_and_channels(_causal_conv, xb, params["conv"].to(dtype),
+                                     dims=((0, 2), (None, 1)), out_dims=(0, 2)))
     dt, a, bmat, cmat = _mamba_gates(params, xc)  # a: (B, S, d, N) float32
     bterm = ((dt * xc)[..., None] * bmat[:, :, None, :]).to(a.dtype)
     h0 = torch.zeros((x.shape[0], x.shape[2], bmat.shape[-1]), dtype=a.dtype, device=x.device)
-    h_all = _mamba_scan(a, bterm, h0, chunk)
+    scan = functools.partial(_mamba_scan, chunk=chunk)
+    h_all = by_rows_and_channels(scan, a, bterm, h0, dims=((0, 2), (0, 2), (0, 1)), out_dims=(0, 2))
     y = torch.einsum("bsdn,bsn->bsd", h_all.to(dtype), cmat)
     y = y + xc * params["d_skip"].to(dtype)
     y = y * F.silu(z)
-    return y @ params["out"].to(dtype)
+    return linear(y, params["out"].to(dtype))
 
 
 def init_mamba_cache(
@@ -145,8 +151,8 @@ def init_mamba_cache(
 def mamba_decode(params: Params, x: torch.Tensor, cache: Params) -> tuple[torch.Tensor, Params]:
     """One step.  x: (B, 1, d) → (out (B, 1, d), cache updated in place)."""
     dtype = x.dtype
-    xb = x[:, 0] @ params["in_x"].to(dtype)
-    z = x[:, 0] @ params["in_z"].to(dtype)
+    xb = linear(x[:, 0], params["in_x"].to(dtype))
+    z = linear(x[:, 0], params["in_z"].to(dtype))
     hist = torch.cat([cache["conv"].to(dtype), xb[:, None]], 1)  # (B, w, d)
     xc = F.silu(torch.einsum("bwd,wd->bd", hist, params["conv"].to(dtype)))
     dt, a, bmat, cmat = _mamba_gates(params, xc)  # a: (B, d, N)
@@ -155,7 +161,7 @@ def mamba_decode(params: Params, x: torch.Tensor, cache: Params) -> tuple[torch.
     y = y * F.silu(z)
     cache["h"].copy_(h)
     cache["conv"].copy_(hist[:, 1:])
-    return (y @ params["out"].to(dtype))[:, None], cache
+    return linear(y, params["out"].to(dtype))[:, None], cache
 
 
 # =====================================================================
@@ -179,7 +185,7 @@ def mlstm_apply(params: Params, x: torch.Tensor, chunk: int = 256) -> torch.Tens
 
     Per head: C_t = f_t·C_{t-1} + i_t·k_t v_tᵀ, n_t = f_t·n_{t-1} + i_t·k_t,
     h_t = (C_tᵀ q_t) / max(|n_t·q_t|, 1), with sigmoid gates."""
-    bsz, s, d = x.shape
+    s = x.shape[1]
     dtype = x.dtype
     q = _project(x, params["wq"]).transpose(1, 2)  # (B, H, S, hd)
     k = _project(x, params["wk"]).transpose(1, 2)
@@ -187,14 +193,21 @@ def mlstm_apply(params: Params, x: torch.Tensor, chunk: int = 256) -> torch.Tens
     hd = q.shape[-1]
     # JAX promotes x.dtype / np.float32 to float32.
     k = k.float() / math.sqrt(hd)
-    igate = torch.sigmoid(x @ params["w_i"].to(dtype)).transpose(1, 2)  # (B, H, S)
-    fgate = torch.sigmoid(x @ params["w_f"].to(dtype)).transpose(1, 2)
+    igate = torch.sigmoid(linear(x, params["w_i"].to(dtype))).transpose(1, 2)  # (B, H, S)
+    fgate = torch.sigmoid(linear(x, params["w_f"].to(dtype))).transpose(1, 2)
+    chunks = functools.partial(_mlstm_chunks, chunk=_chunk_len(s, chunk), dtype=dtype)
+    h = by_batch_and_heads(chunks, q, k, v, igate, fgate, heads_out=2)  # (B, S, d)
+    o = torch.sigmoid(linear(x, params["w_o"].to(dtype)))
+    return linear(h * o, params["out"].to(dtype))
 
-    chunk = _chunk_len(s, chunk)
-    n_heads = q.shape[1]
-    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
-    c_state = torch.zeros((bsz, n_heads, hd, hd), dtype=torch.float32, device=x.device)
-    n_state = torch.zeros((bsz, n_heads, hd), dtype=torch.float32, device=x.device)
+
+def _mlstm_chunks(q, k, v, igate, fgate, *, chunk: int, dtype) -> torch.Tensor:
+    """The chunkwise recurrence over q, v (B, H, S, hd), the scaled float32
+    k and the gates (B, H, S) → h (B, S, H·hd) in ``dtype``."""
+    bsz, n_heads, s, hd = q.shape
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=q.device))
+    c_state = torch.zeros((bsz, n_heads, hd, hd), dtype=torch.float32, device=q.device)
+    n_state = torch.zeros((bsz, n_heads, hd), dtype=torch.float32, device=q.device)
     outs = []
     for c in range(0, s, chunk):
         sl = slice(c, c + chunk)
@@ -215,9 +228,17 @@ def mlstm_apply(params: Params, x: torch.Tensor, chunk: int = 256) -> torch.Tens
         kdec = kf * torch.exp(ltot - lc)[..., None] * iw[..., None]
         c_state = torch.exp(ltot)[..., None] * c_state + kdec.transpose(-1, -2) @ vf
         n_state = torch.exp(ltot) * n_state + kdec.sum(2)
-    h = torch.cat(outs, 2).transpose(1, 2).reshape(bsz, s, d)
-    o = torch.sigmoid(x @ params["w_o"].to(dtype))
-    return (h * o) @ params["out"].to(dtype)
+    return torch.cat(outs, 2).transpose(1, 2).reshape(bsz, s, n_heads * hd)
+
+
+def _mlstm_cell(q, k, v, i, f, c, n):
+    """One step of the cell: q, k, v (B, H, hd) float32, the gates (B, H),
+    the state c (B, H, hd, hd) and n (B, H, hd) → (h, the new c, n)."""
+    c = f[..., None, None] * c + i[..., None, None] * (k[..., :, None] * v[..., None, :])
+    n = f[..., None] * n + i[..., None] * k
+    num = (q[..., None, :] @ c)[..., 0, :]
+    denom = torch.clamp_min(torch.abs((q * n).sum(-1)), 1.0)
+    return num / denom[..., None], c, n
 
 
 def init_mlstm_cache(
@@ -240,17 +261,14 @@ def mlstm_decode(params: Params, x: torch.Tensor, cache: Params) -> tuple[torch.
     k = _project(xt, params["wk"]).float()
     v = _project(xt, params["wv"]).float()
     k = k / math.sqrt(q.shape[-1])
-    i = torch.sigmoid(xt @ params["w_i"].to(dtype)).float()  # (B, H)
-    f = torch.sigmoid(xt @ params["w_f"].to(dtype)).float()
-    c = f[..., None, None] * cache["c"] + i[..., None, None] * (k[..., :, None] * v[..., None, :])
-    n = f[..., None] * cache["n"] + i[..., None] * k
-    num = (q[..., None, :] @ c)[..., 0, :]
-    denom = torch.clamp_min(torch.abs((q * n).sum(-1)), 1.0)
-    h = (num / denom[..., None]).reshape(xt.shape[0], -1).to(dtype)
-    o = torch.sigmoid(xt @ params["w_o"].to(dtype))
+    i = torch.sigmoid(linear(xt, params["w_i"].to(dtype))).float()  # (B, H)
+    f = torch.sigmoid(linear(xt, params["w_f"].to(dtype))).float()
+    h, c, n = by_batch_and_heads(_mlstm_cell, q, k, v, i, f, cache["c"], cache["n"], n_out=3)
+    h = h.reshape(xt.shape[0], -1).to(dtype)
+    o = torch.sigmoid(linear(xt, params["w_o"].to(dtype)))
     cache["c"].copy_(c)
     cache["n"].copy_(n)
-    return ((h * o) @ params["out"].to(dtype))[:, None], cache
+    return linear(h * o, params["out"].to(dtype))[:, None], cache
 
 
 # =====================================================================
@@ -285,23 +303,29 @@ def _slstm_step(r: torch.Tensor, h, c, n, xg: torch.Tensor, n_heads: int):
 
 def _slstm_gates(params: Params, x: torch.Tensor) -> torch.Tensor:
     """x (..., d) @ w_in (d, 4, d) → float32 (4, ..., d)."""
-    d = x.shape[-1]
-    xg = (x @ params["w_in"].to(x.dtype).reshape(d, 4 * d)).unflatten(-1, (4, d))
+    xg = linear(x, params["w_in"].to(x.dtype))
     return xg.movedim(-2, 0).float()
 
 
 def slstm_apply(params: Params, x: torch.Tensor, n_heads: int) -> torch.Tensor:
     """x: (B, S, d) → (B, S, d), one step a token."""
-    bsz, s, d = x.shape
     dtype = x.dtype
-    xg = _slstm_gates(params, x)  # (4, B, S, d)
-    r = params["r"].float()
-    h = c = n = torch.zeros((bsz, d), dtype=torch.float32, device=x.device)
+    xg = _slstm_gates(params, x).movedim(0, 1)  # (B, 4, S, d)
+    scan = functools.partial(_slstm_scan, n_heads=n_heads)
+    hs = by_rows(scan, (xg,), (params["r"].float(),))
+    return linear(hs.to(dtype), params["out"].to(dtype))
+
+
+def _slstm_scan(xg: torch.Tensor, r: torch.Tensor, *, n_heads: int) -> torch.Tensor:
+    """The recurrence over the sequence: xg (B, 4, S, d) the input gates,
+    r (4, H, hd, hd) float32 → every h (B, S, d) float32."""
+    bsz, _, s, d = xg.shape
+    h = c = n = torch.zeros((bsz, d), dtype=torch.float32, device=xg.device)
     hs = []
     for t in range(s):
-        h, c, n = _slstm_step(r, h, c, n, xg[:, :, t], n_heads)
+        h, c, n = _slstm_step(r, h, c, n, xg[:, :, t].movedim(1, 0), n_heads)
         hs.append(h)
-    return torch.stack(hs, 1).to(dtype) @ params["out"].to(dtype)
+    return torch.stack(hs, 1)
 
 
 def init_slstm_cache(
@@ -316,10 +340,13 @@ def slstm_decode(
 ) -> tuple[torch.Tensor, Params]:
     """One step.  x: (B, 1, d) → (out (B, 1, d), cache updated in place)."""
     dtype = x.dtype
-    h, c, n = _slstm_step(
-        params["r"].float(), cache["h"].float(), cache["c"].float(), cache["n"].float(),
-        _slstm_gates(params, x[:, 0]), n_heads,
-    )
+
+    def step(h, c, n, xg, r):
+        return _slstm_step(r, h, c, n, xg.movedim(1, 0), n_heads)
+
+    h, c, n = by_rows(step, (cache["h"].float(), cache["c"].float(), cache["n"].float(),
+                             _slstm_gates(params, x[:, 0]).movedim(0, 1)),
+                      (params["r"].float(),), n_out=3)
     for name, new in (("h", h), ("c", c), ("n", n)):
         cache[name].copy_(new)
-    return (h.to(dtype) @ params["out"].to(dtype))[:, None], cache
+    return linear(h.to(dtype), params["out"].to(dtype))[:, None], cache

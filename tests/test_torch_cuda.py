@@ -591,7 +591,7 @@ FLASH_BWD_CASES = [
 @pytest.mark.parametrize("b,h,kv,s,hd,dtype,window,softcap,lengths,causal", FLASH_BWD_CASES)
 def test_flash_backward_kernel_matches_autograd_through_plain(cuda_device, b, h, kv, s, hd, dtype,
                                                               window, softcap, lengths, causal):
-    """dq, dk, dv through ``ops.flash_attention``'s autograd Function (the
+    """dq, dk, dv through ``ops.flash_attention``'s autograd formula (the
     forward with its LSE, then the backward kernel) against autograd through
     the plain version, on the same inputs and output gradient: float32 to
     1e-4, bf16 to 2e-2 (relative, and of the largest gradient); the LSE
@@ -753,3 +753,39 @@ def test_train_step_on_the_card_matches_the_cpu(cuda_device, arch):
         assert counts[name] > 0, name
     errors = smoke.train_step_errors(card, cpu, 1e-3)
     assert errors["ok"], errors
+
+
+def _op_args(name, dev):
+    """Small inputs of operator ``name``, the floating-point ones of the
+    three differentiable forwards requiring grad."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    q, k, v = (_randn(g, (2, 4, 32, 64), dev) for _ in range(3))
+    lengths = torch.tensor([32, 17], dtype=torch.int32, device=dev)
+    x, scale = _randn(g, (3, 5, 64), dev), _randn(g, (64,), dev)
+    logits = _randn(g, (8, 16), dev)
+    if name == "flash_attention":
+        return tuple(t.requires_grad_(True) for t in (q, k, v)) + (lengths, True, 0, 0.0, True)
+    if name == "flash_attention_bwd":
+        out, lse = torch.ops.repro_torch.flash_attention(q, k, v, lengths, True, 0, 0.0, True)
+        return (q, k, v, out, _randn(g, out.shape, dev), lse, lengths, True, 0, 0.0)
+    if name == "decode_attention":
+        kc, vc = (_randn(g, (2, 4, 32, 64), dev) for _ in range(2))
+        return (q[:, :, 0].contiguous(), kc, vc, lengths, 0.0)
+    if name == "rmsnorm":
+        return (x.requires_grad_(True), scale.requires_grad_(True), 1e-5)
+    if name == "rmsnorm_bwd":
+        return (x, scale, _randn(g, x.shape, dev), 1e-5)
+    if name == "moe_gating":
+        return (logits.requires_grad_(True), 2)
+    gates, ids = torch.ops.repro_torch.moe_gating(logits, 2)
+    return (logits, ids, _randn(g, gates.shape, dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["flash_attention", "flash_attention_bwd", "decode_attention", "rmsnorm",
+                                  "rmsnorm_bwd", "moe_gating", "moe_gating_bwd"])
+def test_operators_pass_opcheck(cuda_device, name):
+    """``torch.library.opcheck`` on each kernel's operator: its schema, its
+    autograd registration, its fake implementation against the CUDA one,
+    and its use under ``aot_autograd`` with dynamic shapes."""
+    torch.library.opcheck(getattr(torch.ops.repro_torch, name).default, _op_args(name, cuda_device))

@@ -291,9 +291,9 @@ def test_port_imports_no_jax_and_nothing_of_the_reference():
 
 COPIES = [f"core/{m}.py" for m in (
     "__init__", "request", "distributions", "eventwheel", "requeststore", "hull",
-    "priority", "profiler", "scheduler", "baselines", "eventloop", "tokensched",
+    "priority", "profiler", "scheduler", "baselines", "eventloop", "tokensched", "simulator",
 )] + [f"serving/{m}.py" for m in ("batcher", "faults", "workload", "residency", "trace", "cluster")] + [
-    f"eval/{m}.py" for m in ("__init__", "spec", "workloads", "runner", "grid", "claims")
+    f"eval/{m}.py" for m in ("__init__", "spec", "workloads", "runner", "grid", "claims", "sched_gate")
 ] + ["models/config.py"] + [
     f"configs/{m}.py" for m in (
         "orloj_gpt", "arctic_480b", "glm4_9b", "dbrx_132b", "granite_34b", "olmo_1b",

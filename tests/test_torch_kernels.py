@@ -12,6 +12,7 @@ themselves are held against the plain versions on the card by
 """
 
 import math
+import types
 
 import numpy as np
 import pytest
@@ -498,11 +499,20 @@ def test_cpu_tensors_launch_neither_new_kernel():
 
 
 def test_other_devices_raise():
+    """A meta tensor (no data: the dry-run's shards) takes the kernel's
+    operator, whose fake implementation gives the outputs' shapes and
+    types and launches nothing; a device the port has no kernel for
+    raises."""
     q = torch.empty((1, 2, 16, 32), device="meta")
-    with pytest.raises(ValueError, match="no kernel"):
-        ops.flash_attention(q, q, q)
-    with pytest.raises(ValueError, match="no kernel"):
-        ops.decode_attention(q[:, :, 0], q, q, torch.empty((1,), dtype=torch.int32, device="meta"))
+    before = ops.launch_counts()
+    out = ops.flash_attention(q, q, q)
+    assert out.device.type == "meta" and out.shape == q.shape and out.dtype == q.dtype
+    dec = ops.decode_attention(q[:, :, 0], q, q, torch.empty((1,), dtype=torch.int32, device="meta"))
+    assert dec.device.type == "meta" and dec.shape == (1, 2, 32)
+    assert ops.launch_counts() == before
+    for dev in ("xpu", "mps"):
+        with pytest.raises(ValueError, match="no kernel"):
+            ops._route(types.SimpleNamespace(device=torch.device(dev)))
 
 
 @pytest.mark.parametrize(
