@@ -43,8 +43,13 @@ Phases, each reported on its own lines; any failure exits non-zero:
    1e-4, bf16 to 2e-2): flash at the training shapes (orloj_gpt's, GLM-4's
    GQA 16:1 at S 1024, Arctic's, Hymba's windows) and at head sizes 16, 32,
    128 and 192 with lengths, an empty row (zero gradients), softcap, full
-   attention, S 1 and bf16; RMSNorm at GLM-4's, Arctic's and Hymba's widths;
-   the gates at Arctic's, E 3 to 256, ties, -inf logits, bf16;
+   attention, S 1 and bf16, and the GQA splits of the dK/dV launch (groups
+   of 16 at S 1000 with an empty row and in bf16 at S 512, of 4 at head size
+   192 with a window); RMSNorm at GLM-4's, Arctic's and Hymba's widths,
+   ragged d in float32 and bf16 and the widest it takes (56832, the
+   rereading kernel); the gates at Arctic's, E 3 to 256, ties, -inf
+   logits, bf16; then each redesigned backward (flash at GLM-4's shape,
+   RMSNorm at (2048, 4096)) called twice, its gradients bit-identical;
 4. orloj_gpt: full width (12 layers, d 768, 12 heads, vocab 32000, weights
    from a seeded ``torch.Generator``) profiled for Eq. 3 and serving 100
    requests under the Orloj scheduler; the logits of a small batch held
@@ -130,12 +135,14 @@ Phases, each reported on its own lines; any failure exits non-zero:
    their plain versions and to their bounds, then the ``kernels`` line
    (JSON): launches on the main paths, kernel, plain and library times,
    and the least time the card could take (for flash also on the tensor
-   cores: ``tc_bound_ms``, and the forward with its LSE output off and on,
+   cores: ``tc_bound_ms``, the backward's ``bound_ms`` only there; the
+   forward with its LSE output off and on,
    ``lse``; for the gating also its own duration from the profiler,
    ``own_ms``, and both times at T = 8, 32, 256 and 2048, ``by_T``; for
    the backwards autograd through the plain version and the library's
    backward, each captured in a CUDA graph and replayed, as the kernels
-   are).
+   are, and each launch's own duration; the flash backward also in bf16
+   and at Arctic's shape, with its GQA split count).
 
 Phases 4 and 5 also run decode ≡ forward: a prompt of a few tokens for 2
 rows through ``Model.logits`` and the same tokens one by one through
@@ -176,7 +183,8 @@ sys.path.insert(0, str(ROOT / "src"))
 # FLOP/s outside the tensor cores, and the dense tensor-core rates in TF32
 # and bf16.  `bound_ms` counts float32 work at the SIMT rate (as since the
 # port began); the flash kernel's `tc_bound_ms` counts it on the tensor
-# cores, three TF32 passes per float32 product.
+# cores, three TF32 passes per float32 product, as the flash backward's
+# `bound_ms` does.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 TF32_FLOP_PER_S = 495e12
@@ -240,6 +248,12 @@ def own_ms(fn, kernel: str, calls: int = 20) -> float:
     warm-up step, whose records are discarded, before the measured one: on
     some hosts a profile that starts cold keeps only 6 to 9 records of 20.
     Fails if the measured step kept fewer than half."""
+    return own_ms_each(fn, (kernel,), calls)[kernel]
+
+
+def own_ms_each(fn, kernels, calls: int = 20) -> dict[str, float]:
+    """:func:`own_ms` of each kernel of ``kernels`` (each launched once a
+    call of ``fn``), from one profile."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -253,11 +267,15 @@ def own_ms(fn, kernel: str, calls: int = 20) -> float:
                 fn()
             torch.cuda.synchronize()
             prof.step()
-    found = [e for e in prof.key_averages() if kernel in e.key and e.device_type.name == "CUDA"]
-    n = sum(e.count for e in found)
-    if not calls / 2 <= n <= calls:
-        raise SystemExit(f"the profiler recorded {n} {kernel} kernels for {calls} calls")
-    return sum(e.device_time_total for e in found) / n / 1e3
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    res = {}
+    for kernel in kernels:
+        found = [e for e in events if kernel in e.key]
+        n = sum(e.count for e in found)
+        if not calls / 2 <= n <= calls:
+            raise SystemExit(f"the profiler recorded {n} {kernel} kernels for {calls} calls")
+        res[kernel] = sum(e.device_time_total for e in found) / n / 1e3
+    return res
 
 
 def grad_ms(forward, ins, dout) -> float:
@@ -361,28 +379,23 @@ def gating_bound(logits, k: int) -> tuple[float, str]:
     return _bound(4 * t * e + 8 * t * k, (3 + k) * t * e)
 
 
-def flash_bwd_bound(q, k, lengths, causal: bool, window: int) -> tuple[float, str, float, str]:
+def flash_bwd_bound(q, k, lengths, causal: bool, window: int) -> tuple[float, str]:
     """Least time (ms) of the flash backward on these inputs: q, k, v, the
     output, its gradient and the float32 LSE read once, dq, dk, dv written
     once (4 tensors of q's shape, 4 of k's); five products of hd
     multiply-adds per (query, key) pair the masks let through (the
-    recomputed q·k, dO·v, and the dV, dK, dQ products), 10·hd FLOPs.
-    (bound, by) with float32 at the SIMT rate (the kernel's route), then
-    (tc_bound, by) on the tensor cores (float32 as three TF32 passes)."""
+    recomputed q·k, dO·v, and the dV, dK, dQ products), 10·hd FLOPs, on the
+    tensor cores, the kernel's route (float32 as three TF32 passes)."""
     import torch
 
     b, h, s, hd = q.shape
     _, fwd_flops = flash_work(q, k, lengths, causal, window)
     pairs = fwd_flops // (4 * hd)
-    elt = q.element_size()
-    nbytes = elt * (4 * b * h * s * hd + 4 * b * k.shape[1] * s * hd) + 4 * b * h * s
+    nbytes = q.element_size() * (4 * b * h * s * hd + 4 * b * k.shape[1] * s * hd) + 4 * b * h * s
     flops = 10 * hd * pairs
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = (3 * flops / TF32_FLOP_PER_S if q.dtype == torch.float32 else flops / BF16_FLOP_PER_S) * 1e3
-    tc = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-    # The peak rate of the inputs' type: float32 outside the tensor cores, bf16 on them.
-    bound, by = _bound(nbytes, flops) if q.dtype == torch.float32 else tc
-    return bound, by, *tc
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def rmsnorm_bwd_bound(x) -> tuple[float, str]:
@@ -816,6 +829,10 @@ def phase_backward_vs_plain() -> dict[str, float]:
         ("bf16 hd 128 GQA 7:1 lengths [256,131] window 96", 2, 14, 2, 256, 128, bf16, [256, 131], 96, 0.0,
          True),
         ("bf16 hd 192 (2,8->2,256,192)", 2, 8, 2, 256, 192, bf16, None, 0, 0.0, True),
+        ("GQA 16:1 S=1000 lengths [1000,0] (2,32->2,1000,128) f32", 2, 32, 2, 1000, 128, f32, [1000, 0], 0,
+         0.0, True),
+        ("hd 192 GQA 4:1 window 96 (2,8->2,256,192) f32", 2, 8, 2, 256, 192, f32, None, 96, 0.0, True),
+        ("bf16 GQA 16:1 (2,32->2,512,128)", 2, 32, 2, 512, 128, bf16, None, 0, 0.0, True),
     ]
     for name, b, h, kv, s, hd, dt, lens, window, cap, causal in flash_cases:
         q = _randn(gen, (b, h, s, hd), dt)
@@ -842,6 +859,10 @@ def phase_backward_vs_plain() -> dict[str, float]:
             errs["flash_attention_bwd"] = err
         if name.startswith("glm4 train"):
             errs["glm4_flash_attention_bwd"] = err
+        if name.startswith("arctic GQA"):
+            errs["arctic_flash_attention_bwd"] = err
+        if name == "bf16 (8,12,256,64)":
+            errs["bf16_flash_attention_bwd"] = err
 
     rms_cases = [
         ("glm4 train (2048,4096) f32", 2048, 4096, f32),
@@ -851,6 +872,8 @@ def phase_backward_vs_plain() -> dict[str, float]:
         ("ragged (33,130) f32", 33, 130, f32),
         ("T=1 (1,4096) f32", 1, 4096, f32),
         ("bf16 (2048,4096)", 2048, 4096, bf16),
+        ("bf16 ragged (33,130)", 33, 130, bf16),
+        (f"widest (4,{rms.MAX_BACKWARD_D}) f32 (rereads)", 4, rms.MAX_BACKWARD_D, f32),
     ]
     for name, t, d, dt in rms_cases:
         x = _randn(gen, (t, d), dt) * 3
@@ -906,9 +929,40 @@ def phase_backward_vs_plain() -> dict[str, float]:
             failures.append(f"moe_gating_bwd {name}")
         if name.startswith("arctic (2048"):
             errs["moe_gating_bwd"] = err
+    failures += _bit_identity(gen)
     if failures:
         raise SystemExit(f"backward kernels disagree with autograd through their plain versions: {failures}")
     return errs
+
+
+def _bit_identity(gen) -> list[str]:
+    """Each redesigned backward called twice on the same inputs: flash at
+    GLM-4-9B's (2,32->2,1024,128) f32 (split partials) and RMSNorm at
+    (2048,4096) f32; the gradients must be equal bit for bit (no atomics)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rms
+
+    q, dout = (_randn(gen, (2, 32, 1024, 128), torch.float32) for _ in range(2))
+    k, v = (_randn(gen, (2, 2, 1024, 128), torch.float32) for _ in range(2))
+    out, lse = fa.flash_attention_cuda(q, k, v, return_lse=True)
+    x, dy = (_randn(gen, (2048, 4096), torch.float32) for _ in range(2))
+    scale = _randn(gen, (4096,), torch.float32)
+    calls = {
+        "flash_attention_bwd (2,32->2,1024,128) f32": lambda: fa.flash_attention_backward_cuda(q, k, v, out,
+                                                                                               dout, lse),
+        "rmsnorm_bwd (2048,4096) f32": lambda: rms.rmsnorm_backward_cuda(x, scale, dy, eps=1e-5),
+    }
+    failures = []
+    for name, call in calls.items():
+        first, second = call(), call()
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(first, second))
+        log(f"backward vs plain: {name}: two calls bit-identical {same} {'ok' if same else 'FAIL'}")
+        if not same:
+            failures.append(f"{name} bit identity")
+    return failures
 
 
 def phase_serve(engine, ecfg, label: str, must_launch: tuple[str, ...]) -> dict[str, int]:
@@ -1491,6 +1545,7 @@ def _flash_bwd_entry(gen, b, h, kv, s, hd, dtype) -> dict:
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
@@ -1502,19 +1557,23 @@ def _flash_bwd_entry(gen, b, h, kv, s, hd, dtype) -> dict:
     ins = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
     lib_ins = [t.detach().clone().requires_grad_(True)
                for t in (q, k.repeat_interleave(h // kv, 1), v.repeat_interleave(h // kv, 1))]
-    bound, by, tc_bound, tc_by = flash_bwd_bound(q, k, None, True, 0)
+    bound, by = flash_bwd_bound(q, k, None, True, 0)
+    launches = ["flash_bwd_prep_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel"]
+    splits = fa.backward_splits(b, h, kv, s, hd, _build.sm_count(q.device))
+    if splits > 1:
+        launches.append("flash_bwd_sum_kernel")
     e = {
-        "ms": time_ms(kernel),
+        "ms": time_ms(kernel), "splits": splits, "own_ms": own_ms_each(kernel, launches),
         "plain_ms": grad_ms(ref.flash_attention_ref, ins, dout),
         "bound_ms": bound, "bound_by": by,
         "library_ms": grad_ms(lambda *t: F.scaled_dot_product_attention(*t, is_causal=True), lib_ins, dout),
-        "tc_bound_ms": tc_bound, "tc_bound_by": tc_by,
     }
     log(f"flash backward ({b},{h}->{kv},{s},{hd}) {str(dtype)[6:]}, ratios in this call: /SDPA backward "
-        f"{e['ms'] / e['library_ms']:.3f}, /plain {e['ms'] / e['plain_ms']:.3f}, /bound {e['ms'] / bound:.3f} "
-        f"(bound {bound:.6f} ms, {by}), /tc_bound {e['ms'] / tc_bound:.3f} (tc_bound {tc_bound:.6f} ms, "
-        f"{tc_by}); {e['ms']:.6f} ms, plain {e['plain_ms']:.6f}, SDPA backward {e['library_ms']:.6f} "
-        f"(all by graph replay)")
+        f"{e['ms'] / e['library_ms']:.3f}, /plain {e['ms'] / e['plain_ms']:.3f}, /tc_bound "
+        f"{e['ms'] / bound:.3f} (tc_bound {bound:.6f} ms, {by}); {e['ms']:.6f} ms, plain {e['plain_ms']:.6f}, "
+        f"SDPA backward {e['library_ms']:.6f} "
+        f"(all by graph replay); {splits} split(s), own durations "
+        f"{', '.join(f'{n[10:-7]} {t:.6f}' for n, t in e['own_ms'].items())} ms")
     return e
 
 
@@ -1538,6 +1597,10 @@ def _backward_entries(gen, counts: dict[str, int], errs: dict[str, float]) -> li
         **_flash_bwd_entry(gen, 8, 12, 12, 256, 64, f32),
         "glm4": {"max_abs_err": errs["glm4_flash_attention_bwd"],
                  **_flash_bwd_entry(gen, 2, 32, 2, 1024, 128, f32)},
+        "bf16": {"max_abs_err": errs["bf16_flash_attention_bwd"],
+                 **_flash_bwd_entry(gen, 8, 12, 12, 256, 64, torch.bfloat16)},
+        "arctic": {"max_abs_err": errs["arctic_flash_attention_bwd"],
+                   **_flash_bwd_entry(gen, 2, 56, 8, 256, 128, f32)},
     }
 
     x = _randn(gen, (2048, 4096), f32)
@@ -1550,6 +1613,7 @@ def _backward_entries(gen, counts: dict[str, int], errs: dict[str, float]) -> li
         "replaces": "src/repro/kernels/rmsnorm.py:24",
         "launches": counts["rmsnorm_bwd"], "max_abs_err": errs["rmsnorm_bwd"],
         "ms": time_ms(kernel),
+        "own_ms": own_ms_each(kernel, ("rmsnorm_bwd_rows_kernel", "rmsnorm_bwd_reduce_kernel")),
         "plain_ms": grad_ms(lambda x_, s_: ref.rmsnorm_ref(x_, s_, 1e-5), ins, dy),
         "bound_ms": bound, "bound_by": by,
         "library_ms": grad_ms(lambda x_, s_: F.rms_norm(x_, (4096,), weight=s_, eps=1e-5), ins, dy),
@@ -1557,7 +1621,8 @@ def _backward_entries(gen, counts: dict[str, int], errs: dict[str, float]) -> li
     log(f"rmsnorm backward (2048,4096) f32: {rmsnorm['ms']:.6f} ms; /bound {rmsnorm['ms'] / bound:.3f} "
         f"(bound {bound:.6f} ms, {by}); /F.rms_norm backward {rmsnorm['ms'] / rmsnorm['library_ms']:.3f} "
         f"({rmsnorm['library_ms']:.6f} ms), /plain {rmsnorm['ms'] / rmsnorm['plain_ms']:.3f} "
-        f"({rmsnorm['plain_ms']:.6f} ms) (all by graph replay)")
+        f"({rmsnorm['plain_ms']:.6f} ms) (all by graph replay); own durations "
+        f"{', '.join(f'{n[12:-7]} {t:.6f}' for n, t in rmsnorm['own_ms'].items())} ms")
 
     logits = _randn(gen, (2048, 128), f32) * 2
     _, ids = gating.moe_gating_cuda(logits, 2)
@@ -2651,8 +2716,9 @@ def run_memory_prediction() -> None:
     256)) and T2 (GLM-4-9B cut to GLM_TRAIN_LAYERS layers at (2, 1024))
     against the peak of the same step on the card, held to MEMORY_TOL.
     What the fake implementations do not allocate (the flash backward's
-    (B, H, S) float32 row sums, the RMSNorm backward's per-block partials,
-    cuBLAS's workspace) is in the card's peak only."""
+    (2, B, H, S) float32 row statistics and its split group's dK/dV
+    partials, the RMSNorm backward's per-block partials, cuBLAS's
+    workspace) is in the card's peak only."""
     import torch
     import torch.distributed as dist
 

@@ -23,6 +23,7 @@ backward.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -127,6 +128,12 @@ def build_all(names: tuple[str, ...] = KERNELS) -> dict[str, str]:
         if failed:
             raise RuntimeError("nvcc failed to build " + "\n".join(failed))
         return logs
+
+
+@functools.cache
+def sm_count(device: torch.device) -> int:
+    """The multiprocessors of a CUDA device (the backward planners' unit)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def needs_grad(*tensors) -> bool:

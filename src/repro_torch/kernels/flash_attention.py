@@ -21,6 +21,9 @@ from . import _build
 
 HEAD_DIMS = (16, 32, 64, 128, 192)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# Keys a dK/dV block of the backward owns, by head size: ``Cfg<T, HD>::kRows``
+# of ``csrc/flash_attention_bwd.cu`` (8 warps of 16 rows at 128, else 4).
+KEY_ROWS = {16: 64, 32: 64, 64: 64, 128: 128, 192: 64}
 
 launches = 0  # kernel launches since the last reset (ops.reset_launch_counts)
 backward_launches = 0  # the same for the backward
@@ -41,7 +44,7 @@ def _entry():
 @functools.cache
 def _backward_entry():
     fn = _build.load("flash_attention_bwd").flash_attention_bwd_launch
-    fn.argtypes = [_c_ptr] * 11 + [_c_int] * 8 + [ctypes.c_float, _c_ptr]
+    fn.argtypes = [_c_ptr] * 12 + [_c_int] * 8 + [ctypes.c_float, _c_int, _c_ptr]
     fn.restype = _c_int
     return fn
 
@@ -121,6 +124,24 @@ def _check_device(*tensors) -> None:
         raise ValueError(f"all inputs must lie on one CUDA device; got {devices}")
 
 
+def backward_splits(b: int, h: int, kv: int, s: int, hd: int, sms: int) -> int:
+    """How many dK/dV blocks share a GQA group's query heads: 1 for a group
+    of 1 or where the (KV head, batch row, key tile) blocks already number
+    two a multiprocessor; else the smallest divisor of the group that brings
+    them there, or the whole group (one head a block) if none does."""
+    group = h // kv
+    blocks = b * kv * -(-s // KEY_ROWS[hd])
+    if group == 1 or blocks >= 2 * sms:
+        return 1
+    return next((d for d in range(2, group) if group % d == 0 and blocks * d >= 2 * sms), group)
+
+
+def backward_scratch_shape(b: int, h: int, kv: int, s: int, hd: int, splits: int) -> tuple[int, ...]:
+    """The float32 dK/dV partials of a split group, (2, splits, B, KV, S, hd),
+    which the backward's last pass adds in split order; (0,) with one split."""
+    return (2, splits, b, kv, s, hd) if splits > 1 else (0,)
+
+
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` contiguous and starting on a 16-byte boundary (the backward's
     vector loads), copied only where it is not."""
@@ -159,15 +180,19 @@ def flash_attention_backward_cuda(
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    scratch = torch.empty((b, h, s), dtype=torch.float32, device=q.device)  # rowsum(dO∘O)
+    splits = backward_splits(b, h, kv, s, hd, _build.sm_count(q.device))
+    stats = torch.empty((2, b, h, s), dtype=torch.float32, device=q.device)  # L·log2(e), rowsum(dO∘O)
+    partial = torch.empty(backward_scratch_shape(b, h, kv, s, hd, splits), dtype=torch.float32,
+                          device=q.device)
     fn = _backward_entry()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), lengths.data_ptr() if lengths is not None else None,
-            scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            DTYPES[q.dtype], b, h, kv, s, hd, int(causal), int(window), float(softcap), stream,
+            stats.data_ptr(), partial.data_ptr() if splits > 1 else None,
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            DTYPES[q.dtype], b, h, kv, s, hd, int(causal), int(window), float(softcap), splits, stream,
         )
     if err != 0:
         raise RuntimeError(f"flash_attention backward kernel launch failed: cudaError {err}")

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -23,7 +24,38 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0  # kernel launches since the last reset (ops.reset_launch_counts)
 backward_launches = 0  # the same for the backward
-MAX_BACKWARD_D = 56832  # the backward keeps a d-wide float32 partial in shared memory
+MAX_BACKWARD_D = 56832  # the rereading backward keeps a d-wide float32 partial in shared memory
+
+
+class BackwardPlan(NamedTuple):
+    """How the backward's first launch covers (T, d): teams of ``team``
+    threads, ``teams`` a block, ``blocks`` blocks (and rows of the float32
+    dscale partial), each thread ``vpt`` groups of ``vec`` columns held in
+    registers; ``vpt == 0`` takes the rereading kernel (256 threads a block)."""
+
+    vec: int
+    vpt: int
+    team: int
+    teams: int
+    blocks: int
+
+
+def backward_plan(t: int, d: int, element_size: int, aligned: bool, sms: int) -> BackwardPlan:
+    """The backward's plan for a (T, d) input whose elements take
+    ``element_size`` bytes: 16-byte vectors where d is a multiple of one and
+    ``aligned`` (x, dy and scale start on 16-byte boundaries), else single
+    columns; the fewest vectors a thread (1, 2, 4 or 8, at most 32 columns)
+    that keep a team within 256 threads, else the rereading kernel.  Teams
+    fill a block of 512 threads (256 where a thread holds 32 columns: its
+    registers), at most 8; two blocks a multiprocessor at most."""
+    vec = 16 // element_size if aligned and d % (16 // element_size) == 0 else 1
+    groups = -(-d // vec)
+    for vpt in (1, 2, 4, 8):
+        team = 32 * -(-groups // (32 * vpt))
+        if team <= 256 and vpt * vec <= 32:
+            teams = min(8, (512 if vpt * vec <= 16 else 256) // team)
+            return BackwardPlan(vec, vpt, team, teams, min(-(-t // teams), 2 * sms))
+    return BackwardPlan(vec, 0, 256, 1, min(t, 2 * sms))
 
 
 @functools.cache
@@ -35,15 +67,12 @@ def _entry():
 
 
 @functools.cache
-def _backward_entries():
-    lib = _build.load("rmsnorm_bwd")
-    fn = lib.rmsnorm_bwd_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+def _backward_entry():
+    fn = _build.load("rmsnorm_bwd").rmsnorm_bwd_launch
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float] + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    blocks = lib.rmsnorm_bwd_blocks
-    blocks.argtypes = [ctypes.c_int]
-    blocks.restype = ctypes.c_int
-    return fn, blocks
+    return fn
 
 
 def check_inputs(x, scale) -> None:
@@ -102,15 +131,17 @@ def rmsnorm_backward_cuda(
         raise ValueError(f"x, scale and dy must lie on one CUDA device; got {x.device}, "
                          f"{scale.device}, {dy.device}")
     dy = dy.to(x.dtype).contiguous()
-    fn, blocks = _backward_entries()
+    fn = _backward_entry()
     dx = torch.empty_like(x)
     dscale = torch.empty_like(scale)
-    partial = torch.empty((blocks(t), d), dtype=torch.float32, device=x.device)
+    aligned = all(p.data_ptr() % 16 == 0 for p in (x, dy, scale))
+    plan = backward_plan(t, d, x.element_size(), aligned, _build.sm_count(x.device))
+    partial = torch.empty((plan.blocks, d), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
             x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(), partial.data_ptr(),
-            dscale.data_ptr(), DTYPES[x.dtype], t, d, float(eps), stream,
+            dscale.data_ptr(), DTYPES[x.dtype], t, d, float(eps), *plan, stream,
         )
     if err != 0:
         raise RuntimeError(f"rmsnorm backward kernel launch failed: cudaError {err}")

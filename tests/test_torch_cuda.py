@@ -584,6 +584,10 @@ FLASH_BWD_CASES = [
     (3, 4, 2, 1, 64, torch.float32, 0, 0.0, None, True),  # S = 1
     (2, 4, 4, 256, 64, torch.bfloat16, 0, 0.0, None, True),
     (2, 14, 2, 256, 128, torch.bfloat16, 96, 0.0, [256, 131], True),
+    (2, 56, 8, 256, 128, torch.float32, 0, 0.0, None, True),  # Arctic's group of 7: 7 splits
+    (2, 32, 2, 1000, 128, torch.float32, 0, 0.0, [1000, 0], True),  # group 16, S off the tile, empty row
+    (2, 8, 2, 256, 192, torch.float32, 96, 0.0, None, True),  # group 4 at 192 (dV, then dK), window
+    (2, 32, 2, 512, 128, torch.bfloat16, 0, 0.0, None, True),  # a bf16 group of 16, split
 ]
 
 
@@ -635,7 +639,10 @@ def test_flash_backward_kernel_matches_autograd_through_plain(cuda_device, b, h,
 
 RMSNORM_BWD_CASES = [(2048, 4096, torch.float32), (2048, 1600, torch.float32), (300, 7168, torch.float32),
                      (7, 1024, torch.float32), (33, 130, torch.float32), (1, 64, torch.float32),
-                     (256, 4096, torch.bfloat16)]
+                     (256, 4096, torch.bfloat16),
+                     (2048, 7168, torch.float32),  # Arctic's width: 8 vectors a thread
+                     (33, 130, torch.bfloat16),  # single columns in bf16
+                     (4, rms_mod.MAX_BACKWARD_D, torch.float32)]  # the widest: the rereading kernel
 
 
 @pytest.mark.cuda
@@ -658,6 +665,28 @@ def test_rmsnorm_backward_kernel_matches_autograd_through_plain(cuda_device, t, 
     assert dx.dtype == dtype and dscale.dtype == torch.float32
     _grad_close(dx, want_dx, 2e-2 if bf16 else 1e-5)
     _grad_close(dscale, want_ds, 2e-2 if bf16 else 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["flash_attention_bwd", "rmsnorm_bwd"])
+def test_backward_kernels_give_bit_identical_gradients_on_two_calls(cuda_device, kernel):
+    """No atomics and sums in a fixed order: the same inputs give the same
+    bits, at GLM-4-9B's training shapes (flash (2,32->2,1024,128) float32,
+    whose dK/dV go through split partials; RMSNorm (2048, 4096))."""
+    g = torch.Generator(device=cuda_device).manual_seed(22)
+    if kernel == "flash_attention_bwd":
+        q = _randn(g, (2, 32, 1024, 128), cuda_device)
+        k, v = (_randn(g, (2, 2, 1024, 128), cuda_device) for _ in range(2))
+        dout = _randn(g, (2, 32, 1024, 128), cuda_device)
+        out, lse = fa_mod.flash_attention_cuda(q, k, v, return_lse=True)
+        first, second = (fa_mod.flash_attention_backward_cuda(q, k, v, out, dout, lse) for _ in range(2))
+    else:
+        x, dy = (_randn(g, (2048, 4096), cuda_device) for _ in range(2))
+        scale = _randn(g, (4096,), cuda_device)
+        first, second = (rms_mod.rmsnorm_backward_cuda(x, scale, dy, eps=1e-5) for _ in range(2))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
