@@ -52,13 +52,17 @@ Phases, each reported on its own lines; any failure exits non-zero:
    RMSNorm at (2048, 4096)) called twice, its gradients bit-identical;
 4. orloj_gpt: full width (12 layers, d 768, 12 heads, vocab 32000, weights
    from a seeded ``torch.Generator``) profiled for Eq. 3 and serving 100
-   requests under the Orloj scheduler; the logits of a small batch held
+   requests under the Orloj scheduler, each served shape (and the decode
+   step) one CUDA graph, captured at its first use and replayed; at (1, 32)
+   and (8, 256) the replayed logits held bit for bit against an eager
+   forward, with the eager and the replayed ms and each one's profile
+   (``graphs`` lines); the logits of a small batch held
    against the same weights on the CPU; 32 token requests through
    continuous batching on the decode kernel; ``torch.profiler`` over one
-   full prefill batch and one decode step;
+   full prefill batch and one decode step (replays);
 5. arctic: Snowflake Arctic at full width (d 7168, 56 query heads on 8 KV
    heads, 128 experts top-2 beside a dense SwiGLU) cut to 1 layer, in
-   float32 (56 GB of weights), through the same phases; its card-vs-CPU
+   float32 (56 GB of weights), through the same phases (graphs included); its card-vs-CPU
    check runs a second 1-layer full-width model with 8 experts and a
    512-word vocabulary, whose weights fit the host, and also holds the
    routing ids of both runs equal;
@@ -75,16 +79,17 @@ Phases, each reported on its own lines; any failure exits non-zero:
 8. hymba: Hymba-1.5B at full width and depth (32 layers, d 1600, 25 query
    heads on 5 KV heads of 64, Mamba heads of state 16, window 1024; 1.40 G
    float32 parameters): serve under Orloj with rmsnorm and flash launched,
-   the token path (decode at a group of 5), decode ≡ forward over 16
-   tokens, the (8, 256) prefill's peak memory and device time by class
+   its graphs held against eager forwards, the token path (decode at a
+   group of 5), decode ≡ forward over 16 tokens, an eager (8, 256)
+   forward's peak memory and the replay's device time by class
    beside one layer's Mamba branch and its chunk scan alone; then 2 layers
    at full width: a forward of 1100 tokens against 1100 decode steps across
    the 1024-slot ring's wrap;
 9. xlstm: xLSTM-1.3B at full width and depth (48 blocks, d 2048, 4 heads of
    512, one sLSTM block in 8), whose model path launches none of the
    kernels: decode ≡ forward, its token path through the engine (the
-   decode kernel at head size 512, every call held against the plain
-   version), the (8, 256) forward's seconds, device operations and idle
+   decode kernel at head size 512, every step's replay held against the
+   plain version on the graph's inputs), the (8, 256) forward's seconds, device operations and idle
    share, and one sLSTM cell's 256 sequential steps;
 10. internvl2: InternVL2-1B at full width and depth (24 layers, d 896, 14
    query heads on 2 KV heads): logits over 256 patch embeddings and 64
@@ -100,9 +105,11 @@ Phases, each reported on its own lines; any failure exits non-zero:
    head_dim 16) and then on ``engine:orloj_gpt_paper`` (full width, flash
    at 64): per cell the finish rate, the sim twin's, the drift, the batch
    MAPE, the batches, the profiled c0/c1 and the flash launches of its
-   window; the artifact under ``build/``, the drift report per model, and
-   every flash call of one re-served cell of each model held against the
-   plain version;
+   window; each model's graphs held against eager forwards (the toy at
+   (1, 32) and (4, 32)); the artifact under ``build/``, the drift report
+   per model, and every flash call of one cell of each model, served again
+   on a new engine (each shape's eager warm-up), held against the plain
+   version;
 13. training (``repro_torch.launch.train.train``, the CLI's body): T1,
    full-width orloj_gpt 50 steps at (8, 256), the loss must improve; T2,
    GLM-4-9B at full width cut to 4 layers with its recomputation and loss
@@ -155,7 +162,9 @@ returns, at the phase 3 tolerances (one line per kernel and shape;
 
 The launch counters are set to 0 just before each serve, token, forward,
 decode ≡ forward and training path and each engine-smoke cell, and read
-just after; the line's launches are their sums.  Recomputation (T2) runs
+just after; the line's launches are their sums.  A graph's capture counts
+no launch and each replay its captured ones (``ops.captured_launches``),
+so a window counts launches on the card.  Recomputation (T2) runs
 each block's forward again in the backward, so T2's forward launches are
 twice its backward ones.  Every serving path checks that no parameter
 requires grad (the raw launchers refuse such inputs under grad mode).  The
@@ -1047,7 +1056,9 @@ def _kernel_log():
     to ROW_TOL relative and absolute; the gating's ids exactly and its
     gates to ROW_TOL.  Only the wrappers' routes are
     wrapped: the launches and their counts are the path's own; the plain
-    versions launch none of the kernels."""
+    versions launch none of the kernels.  A call inside a CUDA graph's
+    capture runs nothing and is not held; the graph's replays make no call
+    (:func:`_hold_decode_steps` holds the decode graph's)."""
     import torch
 
     from repro_torch.kernels import ops
@@ -1059,6 +1070,8 @@ def _kernel_log():
     def recorder(name, fn):
         def call(*args, **kw):
             out = fn(*args, **kw)
+            if args[0].is_cuda and torch.cuda.is_current_stream_capturing():
+                return out  # recorded into a graph: nothing ran, nothing to hold
             want = _plain(name, args, dict(kw))
             shape = ",".join(str(tuple(a.shape)) for a in args if isinstance(a, torch.Tensor) and a.dim() > 1)
             dtypes = "/".join(sorted({str(a.dtype)[6:] for a in args if isinstance(a, torch.Tensor)
@@ -1170,6 +1183,8 @@ def phase_tokens(engine, label: str, *, hold: bool = False) -> dict[str, int]:
     ops.reset_launch_counts()
     with _kernel_log() if hold else contextlib.nullcontext([]) as calls:
         dec = engine.decode_executor(max_batch=8, max_cache=256)
+        if hold:
+            _hold_decode_steps(dec, calls)
         reqs = engine.make_token_requests(N_TOKEN_REQUESTS, dec, seed=0)
         step_ms = dec.calibrate()
         # Scheduler SLOs far above the requests' own: this phase checks that
@@ -1190,6 +1205,71 @@ def phase_tokens(engine, label: str, *, hold: bool = False) -> dict[str, int]:
     if hold:
         _hold_path_calls([c for c in calls if c[0] == "decode_attention"], f"{label} tokens")
     return counts
+
+
+def _hold_decode_steps(dec, calls: list) -> None:
+    """Hold each step of the decode executor ``dec`` (a replay of its graph,
+    which makes no call through ``ops``) against the plain version on the
+    step's own inputs, the static tensors the graph read, after the timed
+    region; recorded as :func:`_kernel_log` records."""
+    from repro_torch.kernels import ref
+
+    once = dec._decode_once
+
+    def held() -> float:
+        ms = once()
+        want = ref.decode_attention_ref(dec._q, dec._kc, dec._vc, dec._valid)
+        err, ok = _attention_ok(dec.last_out, want, False)
+        shape = ",".join(str(tuple(t.shape)) for t in (dec._q, dec._kc, dec._vc))
+        calls.append(("decode_attention", shape, "float32", err, ok, None))
+        return ms
+
+    dec._decode_once = held
+
+
+def phase_graphs(engine, label: str, shapes) -> None:
+    """Each served shape is one captured CUDA graph: at each of ``shapes``
+    (warmed by the profile), the replayed logits against an eager
+    ``model.logits`` call on the same tokens, which must be equal bit for
+    bit (the same kernels on the same inputs); then the eager forward's ms
+    and the replay's (host clock, median of 5, between synchronises) and
+    one call of each under the profiler (busy ms, idle share)."""
+    import numpy as np
+    import torch
+
+    ex, model = engine.executor, engine.model
+    rng = np.random.default_rng(8)
+    for shape in shapes:
+        tokens = rng.integers(1, min(1000, model.cfg.vocab_size), size=shape).astype(np.int32)
+        batch = {"tokens": torch.from_numpy(tokens.astype(np.int64)).cuda()}
+        ex._run(tokens)
+        got = ex.last_logits.clone()
+
+        def eager():
+            with torch.no_grad():
+                return model.logits(engine.params, batch)
+
+        want = eager()
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        log(f"{label} graphs {shape}: replayed logits {tuple(got.shape)} equal to eager ones bit for bit: "
+            f"{same}; max |Δ| {err:.3e} of max |logit| {scale:.3f} ({err / scale:.3e}) {'ok' if same else 'FAIL'}")
+        if not same:
+            raise SystemExit(f"{label} graphs {shape}: the replayed logits differ from the eager forward's")
+        eager_ms, replay_ms = [], []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eager()
+            torch.cuda.synchronize()
+            eager_ms.append((time.perf_counter() - t0) * 1e3)
+            replay_ms.append(ex._run(tokens)[0])
+        log(f"{label} graphs {shape}: eager forward {sorted(eager_ms)[2]:.4f} ms, replay "
+            f"{sorted(replay_ms)[2]:.4f} ms (host clock, median of 5; the replay as the executor measures it)")
+        for name, fn in ((f"eager forward {shape}", eager), (f"replay {shape}", lambda: ex._run(tokens))):
+            _profile(fn, f"{label} graphs", name)
 
 
 def phase_where_time_goes(engine, label: str) -> None:
@@ -1780,6 +1860,9 @@ def _release() -> None:
     torch.cuda.empty_cache()
 
 
+GRAPH_SHAPES = ((1, 32), (8, 256))  # the smallest and the largest served shape
+
+
 def run_orloj_gpt(ecfg) -> list[dict[str, int]]:
     """The dense path: full-width orloj_gpt."""
     from repro_torch.configs.orloj_gpt import CONFIG
@@ -1792,6 +1875,7 @@ def run_orloj_gpt(ecfg) -> list[dict[str, int]]:
     log(f"serve: {CONFIG.name} {CONFIG.n_layers} layers, d {CONFIG.d_model}, "
         f"{n_params} params, computing in float32 (built in {time.perf_counter() - t0:.1f} s)")
     windows = [phase_serve(engine, ecfg, "serve", ("flash_attention",))]
+    phase_graphs(engine, "orloj_gpt", GRAPH_SHAPES)
     phase_card_vs_cpu(engine.model, engine.params, "serve")
     windows.append(phase_tokens(engine, "orloj_gpt"))
     windows.append(phase_decode_matches_forward(engine.model, engine.params, "orloj_gpt"))
@@ -1825,6 +1909,7 @@ def run_arctic(ecfg) -> list[dict[str, int]]:
         f"(built in {time.perf_counter() - t0:.1f} s)")
     windows = [phase_serve(engine, ecfg, "arctic", ("rmsnorm", "moe_gating", "flash_attention"))]
     log(f"arctic: peak {torch.cuda.max_memory_allocated()} bytes after serving")
+    phase_graphs(engine, "arctic", GRAPH_SHAPES)
 
     # The 56 GB model does not go to the host: the card-vs-CPU check runs a
     # full-width layer with 8 experts and a 512-word vocabulary.
@@ -1937,7 +2022,8 @@ def phase_hymba_prefill(engine) -> None:
     """Where Hymba's (8, 256) prefill spends the card's time: the profile by
     class (GEMMs, flash, rmsnorm, the rest), one layer's Mamba branch alone
     and its chunk scan alone (the forward runs 32 of each), and the
-    prefill's peak memory above the weights."""
+    prefill's peak memory above the weights (an eager forward's: a replay
+    runs in its graph's memory pool, held since the capture)."""
     import numpy as np
     import torch
 
@@ -1946,13 +2032,15 @@ def phase_hymba_prefill(engine) -> None:
     cfg = engine.model.cfg
     tokens = np.ones((8, 256), np.int32)
     engine.executor._run(tokens)  # warm
+    ms, _ = engine.executor._run(tokens)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    ms, _ = engine.executor._run(tokens)
+    with torch.no_grad():  # the replay allocates nothing: its graph's pool is held
+        engine.model.logits(engine.params, {"tokens": torch.ones((8, 256), dtype=torch.long, device="cuda")})
     peak = torch.cuda.max_memory_allocated() - base
-    log(f"hymba prefill (8,256): {ms:.4f} ms on the host's clock; peak {peak} bytes above the "
-        f"{base} bytes held before it")
+    log(f"hymba prefill (8,256): replay {ms:.4f} ms on the host's clock; an eager forward's peak {peak} "
+        f"bytes above the {base} bytes held before it")
     classes = _by_class(_profile(lambda: engine.executor._run(tokens), "hymba", "prefill (8,256)"))
     gen = torch.Generator(device="cuda").manual_seed(4)
     h = _randn(gen, (8, 256, cfg.d_model), torch.float32)
@@ -2000,6 +2088,7 @@ def run_hymba(ecfg) -> list[dict[str, int]]:
         f"bytes after init (built in {time.perf_counter() - t0:.1f} s)")
     windows = [phase_serve(engine, ecfg, "hymba", ("rmsnorm", "flash_attention"))]
     log(f"hymba: peak {torch.cuda.max_memory_allocated()} bytes after serving")
+    phase_graphs(engine, "hymba", GRAPH_SHAPES)
     windows.append(phase_tokens(engine, "hymba"))
     windows.append(phase_decode_matches_forward(engine.model, engine.params, "hymba", prompt=16))
     phase_hymba_prefill(engine)
@@ -2203,10 +2292,12 @@ def run_engine_smoke() -> list[dict[str, int]]:
     over 4 heads: flash at head_dim 16) and then the same 4 specs on
     ``engine:orloj_gpt_paper`` (full width, 12 layers, d 768: flash at
     head_dim 64).  Each cell is its own launch window (the first of a model
-    also builds and profiles its engine).  Then one cell of each model is
-    served again with every flash call recorded and held against the plain
-    version; those runs are outside the windows.  Writes the artifact under
-    build/ and prints the drift report per model."""
+    also builds and profiles its engine).  Then each model's replayed
+    logits are held against eager ones (:func:`phase_graphs`), and one cell
+    of each model is served again on a new engine with every flash call
+    recorded and held against the plain version (each served shape's eager
+    warm-up: the replays make no call); those runs are outside the windows.
+    Writes the artifact under build/ and prints the drift report per model."""
     import numpy as np
 
     from repro_torch.eval import evaluate_claims, runner, substrate
@@ -2246,20 +2337,29 @@ def run_engine_smoke() -> list[dict[str, int]]:
             f"{list(engine.cfg.batch_sizes)}, {engine.model.param_count(engine.params)} params")
         if cfg.resolved_head_dim != want_hd:
             raise SystemExit(f"engine-smoke {model}: head_dim {cfg.resolved_head_dim}, not {want_hd}")
-        # Every flash call of one cell, on its own inputs, against the plain version.
+        big = max(engine.cfg.batch_sizes), max(engine.cfg.buckets)
+        phase_graphs(engine, f"engine-smoke {model}", ((1, 32), big))
+        # Every flash call the host makes for one cell, on its own inputs,
+        # against the plain version: served again on a new engine, whose
+        # shapes' eager warm-ups (in its profile) make those calls; the
+        # captured graphs' replays make none.
+        del engine
+        substrate._ENGINE_CACHE.clear()
+        _release()
         with _kernel_log() as calls:
             runner.run_specs([cells[0]], jobs=1)
         flash_calls = [c for c in calls if c[0] == "flash_attention"]
         if not flash_calls:
             raise SystemExit(f"engine-smoke {model}: the held run made no flash call")
-        _hold_path_calls(flash_calls, f"engine-smoke {model} {cells[0].tag} (served again)")
+        _hold_path_calls(flash_calls, f"engine-smoke {model} {cells[0].tag} (served again on a new engine, "
+                                      f"each shape's warm-up)")
         del calls, flash_calls
         if model == "orloj_gpt":
-            big = max(engine.cfg.batch_sizes), max(engine.cfg.buckets)
+            engine, _ = substrate._get_engine(model)
             tokens = np.ones(big, np.int32)
             _profile(lambda: engine.executor._run(tokens), "engine-smoke orloj_gpt",
                      f"prefill {big} (the toy's largest batch)")
-        del engine
+            del engine
 
     claims = evaluate_claims(results)
     drift = substrate.drift_report(results)

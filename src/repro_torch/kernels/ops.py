@@ -35,6 +35,8 @@ as the raw kernel always did: its ``lse`` comes back (B, H, 0).
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 from torch import Tensor
@@ -441,10 +443,37 @@ def moe_gating(logits: torch.Tensor, top_k: int) -> tuple[torch.Tensor, torch.Te
 def launch_counts() -> dict[str, int]:
     """Kernel launches since the last :func:`reset_launch_counts`, by kernel
     (a ``*_bwd`` backward counts once a call, whatever it launches: flash's
-    and RMSNorm's launch two kernels each)."""
+    and RMSNorm's launch two kernels each).  A CUDA graph's replays count
+    as their launches, its capture as none (:func:`captured_launches`)."""
     return {name: getattr(mod, attr) for name, (mod, attr) in _COUNTERS.items()}
 
 
 def reset_launch_counts() -> None:
     for mod, attr in _COUNTERS.values():
         setattr(mod, attr, 0)
+
+
+def add_launches(counts: dict[str, int]) -> None:
+    """Add ``counts`` (by kernel) to the launch counters: what a CUDA graph's
+    replay launches on the card without a call from the host."""
+    for name, n in counts.items():
+        mod, attr = _COUNTERS[name]
+        setattr(mod, attr, getattr(mod, attr) + n)
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Keep the launch counters to launches on the card across a CUDA graph
+    capture: the wrappers' calls inside the block record kernels into the
+    graph and launch nothing, so the counts they add are taken back on exit,
+    also when the capture fails.  Yields a dict that then holds them by
+    kernel, for :func:`add_launches` to add on each replay."""
+    before = launch_counts()
+    captured: dict[str, int] = {}
+    try:
+        yield captured
+    finally:
+        after = launch_counts()
+        captured.update({name: after[name] - before[name] for name in after
+                         if after[name] != before[name]})
+        add_launches({name: -n for name, n in captured.items()})

@@ -12,6 +12,17 @@ Timing: inputs are copied to the device before the clock starts, and the
 clock stops after ``torch.cuda.synchronize()`` (PyTorch returns before the
 card finishes).  The first run of each shape is a warm-up outside the
 timed region; it is where the kernels are built.
+
+Each served shape runs as one program, the counterpart of the reference's
+per-shape ``jax.jit``: on a CUDA device the first use of a padded
+``(k, bucket)`` shape, and the decode executor's construction, capture the
+forward (the decode step) into a CUDA graph over static input buffers, and
+every measured run copies its inputs into those buffers and replays the
+graph.  On the CPU the same body runs eagerly.  There is no switch and no
+fallback: a capture or replay that fails raises.  A graph reads the
+parameter tensors it captured, so an executor's ``params`` are fixed once
+it is built (:attr:`TorchExecutor.params` is read-only; updating the
+tensors in place is seen by the graphs).
 """
 
 from __future__ import annotations
@@ -57,9 +68,57 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+class _Program:
+    """One served shape's program: ``fn``, which reads only tensors that
+    outlive it (static inputs, parameters) and returns its output.
+
+    On a CUDA device ``fn`` is warmed up once on ``stream`` (where the
+    kernels are built and cuBLAS takes its workspace for the stream), then
+    captured into a CUDA graph whose memory comes from ``pool``; calling the
+    program replays the graph on ``stream`` and returns the graph's static
+    output, which the next replay overwrites.  The capture's kernel calls
+    launch nothing, so their launch counts are taken back and added again
+    at each replay (:func:`ops.captured_launches`).  On the CPU the warm-up
+    runs ``fn`` once and each call runs it eagerly."""
+
+    def __init__(self, fn: Callable[[], torch.Tensor], device: torch.device,
+                 stream: torch.cuda.Stream | None = None, pool=None):
+        self.fn = fn
+        self.graph = None
+        if device.type != "cuda":
+            fn()
+            return
+        self.stream = stream
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(stream):
+            fn()
+        stream.synchronize()
+        self.graph = torch.cuda.CUDAGraph()
+        with ops.captured_launches() as self.launches, torch.cuda.graph(
+            self.graph, pool=pool, stream=stream
+        ):
+            self.out = fn()
+
+    def __call__(self) -> torch.Tensor:
+        if self.graph is None:
+            return self.fn()
+        with torch.cuda.stream(self.stream):
+            self.graph.replay()
+        ops.add_launches(self.launches)
+        return self.out
+
+
 class TorchExecutor:
     """Executor for the simulator loop that runs the real model and returns
     the *measured* batch execution time (ms).
+
+    Each padded ``(k, bucket)`` shape gets a static token buffer and a
+    :class:`_Program` at its first use: on a CUDA device a graph of the
+    forward, captured on the executor's stream into the memory pool that
+    all its graphs share (one graph runs at a time).  Every graph's logits
+    stay allocated: Σk·Σbucket·vocab·4 bytes over the configured shapes.
+    :attr:`last_logits` holds the logits of the last run (on the card, the
+    graph's static output of that shape).
 
     Every served batch is appended to :attr:`measured` as ``(padded_k,
     bucket, measured_ms)``; profiling calls go through :meth:`_run`
@@ -71,11 +130,28 @@ class TorchExecutor:
 
     def __init__(self, model: Model, params: Params, cfg: EngineConfig):
         self.model = model
-        self.params = params
+        self._params = params
         self.cfg = cfg
         self.device = model.device
-        self._warm: set[tuple[int, int]] = set()
+        # padded shape -> (its static token buffer, its program)
+        self._shapes: dict[tuple[int, int], tuple[torch.Tensor, _Program]] = {}
+        if self.device.type == "cuda":
+            self._stream = torch.cuda.Stream(self.device)
+            self._pool = torch.cuda.graph_pool_handle()
+        else:
+            self._stream = self._pool = None
         self.measured: deque[tuple[int, int, float]] = deque(maxlen=self.MEASURED_LOG_CAP)
+
+    @property
+    def params(self) -> Params:
+        """The parameters the programs read; read-only, since a captured
+        graph keeps reading the tensors it was captured with."""
+        return self._params
+
+    @property
+    def _warm(self):
+        """The padded shapes whose program is ready (warmed up, captured)."""
+        return self._shapes.keys()
 
     def drain_measured(self) -> list[tuple[int, int, float]]:
         """Return the ``(padded_k, bucket, measured_ms)`` log and reset it."""
@@ -88,7 +164,7 @@ class TorchExecutor:
 
     @torch.no_grad()
     def _forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.model.logits(self.params, {"tokens": tokens})
+        return self.model.logits(self._params, {"tokens": tokens})
 
     def _run(self, tokens: np.ndarray) -> tuple[float, int]:
         """Execute one padded batch; returns ``(measured_ms, padded_k)``.
@@ -101,15 +177,20 @@ class TorchExecutor:
                 [tokens, np.zeros((k - tokens.shape[0],) + tokens.shape[1:], tokens.dtype)]
             )
         key = tokens.shape
-        batch = torch.from_numpy(np.ascontiguousarray(tokens, np.int64)).to(self.device)
-        if key not in self._warm:
-            # first run of a shape: kernel builds never pollute a measurement
-            self._forward(batch)
-            _sync(self.device)
-            self._warm.add(key)
+        batch = torch.from_numpy(np.ascontiguousarray(tokens, np.int64))
+        if key not in self._shapes:
+            # First run of a shape: the warm-up (where the kernels are built)
+            # and the capture never pollute a measurement.
+            static = torch.empty(key, dtype=torch.int64, device=self.device)
+            static.copy_(batch)
+            self._shapes[key] = static, _Program(
+                lambda: self._forward(static), self.device, self._stream, self._pool
+            )
+        static, program = self._shapes[key]
+        static.copy_(batch)
         _sync(self.device)
         t0 = time.perf_counter()
-        self._forward(batch)
+        self.last_logits = program()
         _sync(self.device)
         return (time.perf_counter() - t0) * 1e3, k
 
@@ -136,9 +217,13 @@ class DecodeTorchExecutor:
     drawn from numpy in the reference's order, so :attr:`last_out` equals
     the reference's for a seed.
 
-    Unlike the reference, the cache is updated in place.  One quirk is
-    kept on purpose: once ``valid_len`` reaches ``max_cache``,
-    ``pos = valid % max_cache`` sends every write to slot 0.
+    Unlike the reference, the state is updated in place: the caches,
+    ``valid_len`` and the step's queries and new K/V are static tensors,
+    which the step (a :class:`_Program`, so on the card one CUDA graph,
+    captured at construction after the warm-up step) reads and writes.
+    Assigning :attr:`_valid` copies into its tensor.  One quirk is kept on
+    purpose: once ``valid_len`` reaches ``max_cache``, ``pos = valid %
+    max_cache`` sends every write to slot 0.
 
     On a CUDA device the step always launches the kernel; the plain
     version runs only for a CPU device."""
@@ -167,51 +252,66 @@ class DecodeTorchExecutor:
         self._rng = np.random.default_rng(seed)
         self._slot: dict[int, int] = {}  # rid -> cache slot
         self._free = list(range(max_batch - 1, -1, -1))
-        shape = (max_batch, self.n_kv, max_cache, self.head_dim)
-        self._kc = torch.zeros(shape, dtype=torch.float32, device=self.device)
-        self._vc = torch.zeros(shape, dtype=torch.float32, device=self.device)
-        self._valid = torch.zeros(max_batch, dtype=torch.int32, device=self.device)
-        self._rows = torch.arange(max_batch, device=self.device)
-        # Warm-up step (builds the kernel), as the reference warms its jit.
-        self._decode_once()
+        b, kv, hd = max_batch, self.n_kv, self.head_dim
+
+        def zeros(*shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+
+        self._kc, self._vc = zeros(b, kv, max_cache, hd), zeros(b, kv, max_cache, hd)
+        self._valid_len = zeros(b, dtype=torch.int32)
+        self._q, self._nk, self._nv = zeros(b, self.n_heads, hd), zeros(b, kv, hd), zeros(b, kv, hd)
+        self._rows = torch.arange(b, device=self.device)
+        # The warm-up step (it builds the kernel), as the reference warms
+        # its jit, then the capture.
+        self._draw()
+        stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        self._program = _Program(self._step, self.device, stream)
+
+    @property
+    def _valid(self) -> torch.Tensor:
+        """Each slot's valid length, (max_batch,) int32; assigning copies."""
+        return self._valid_len
+
+    @_valid.setter
+    def _valid(self, value) -> None:
+        self._valid_len.copy_(value)
 
     # ------------------------------------------------------------ internals
-    def _step(self, q: torch.Tensor, nk: torch.Tensor, nv: torch.Tensor) -> torch.Tensor:
+    @torch.no_grad()
+    def _step(self) -> torch.Tensor:
         """Write this step's K/V at each active slot's ring position,
         advance ``valid_len``, attend.  Inactive slots keep their cache and
         attend over zero valid positions."""
-        valid = self._valid
+        valid = self._valid_len
         active = valid > 0
         pos = (valid % self.max_cache).long()
         sel = active[:, None, None]
         rows = self._rows
-        self._kc[rows, :, pos, :] = torch.where(sel, nk, self._kc[rows, :, pos, :])
-        self._vc[rows, :, pos, :] = torch.where(sel, nv, self._vc[rows, :, pos, :])
-        self._valid = torch.where(active, torch.clamp(valid + 1, max=self.max_cache), valid)
-        return ops.decode_attention(q, self._kc, self._vc, self._valid)
+        self._kc[rows, :, pos, :] = torch.where(sel, self._nk, self._kc[rows, :, pos, :])
+        self._vc[rows, :, pos, :] = torch.where(sel, self._nv, self._vc[rows, :, pos, :])
+        valid.copy_(torch.where(active, torch.clamp(valid + 1, max=self.max_cache), valid))
+        return ops.decode_attention(self._q, self._kc, self._vc, valid)
 
-    def _draw(self, shape) -> torch.Tensor:
-        return torch.from_numpy(self._rng.standard_normal(shape).astype(np.float32)).to(
-            self.device
-        )
+    def _draw(self) -> None:
+        """Draw this step's synthetic queries and new K/V (the reference's
+        order) into their static tensors."""
+        for t in (self._q, self._nk, self._nv):
+            t.copy_(torch.from_numpy(self._rng.standard_normal(tuple(t.shape)).astype(np.float32)))
 
-    @torch.no_grad()
     def _decode_once(self) -> float:
         """One measured decode step at full capacity (ms); mutates the
         cache state of the active slots."""
-        b, h, hd = self.max_batch, self.n_heads, self.head_dim
         # Synthetic values are drawn and copied to the card OUTSIDE the
         # timed region: the measurement prices the step, not host-side rng.
-        q = self._draw((b, h, hd))
-        nk = self._draw((b, self.n_kv, hd))
-        nv = self._draw((b, self.n_kv, hd))
+        self._draw()
         _sync(self.device)
         t0 = time.perf_counter()
-        out = self._step(q, nk, nv)
+        out = self._program()
         _sync(self.device)
         ms = (time.perf_counter() - t0) * 1e3
         # (B, H, hd) attention output of the last step — synthetic-valued,
-        # kept for kernel-integration tests and debugging.
+        # kept for kernel-integration tests and debugging (on the card, the
+        # graph's static output).
         self.last_out = out
         return ms
 
@@ -259,10 +359,11 @@ class DecodeTorchExecutor:
     def calibrate(self, reps: int = 3) -> float:
         """Median measured decode-step ms at *full* batch capacity — the
         request-generation rate anchor (cache state is restored)."""
-        kc, vc, valid = self._kc.clone(), self._vc.clone(), self._valid
-        self._valid = torch.full_like(valid, self.max_cache)
+        saved = [t.clone() for t in (self._kc, self._vc, self._valid_len)]
+        self._valid_len.fill_(self.max_cache)
         ts = [self._decode_once() for _ in range(reps)]
-        self._kc, self._vc, self._valid = kc, vc, valid
+        for t, old in zip((self._kc, self._vc, self._valid_len), saved):
+            t.copy_(old)
         return float(np.median(ts))
 
     def step_time(self, active: Sequence[Request], joined: Sequence[Request], now: float) -> float:

@@ -818,3 +818,117 @@ def test_operators_pass_opcheck(cuda_device, name):
     autograd registration, its fake implementation against the CUDA one,
     and its use under ``aot_autograd`` with dynamic shapes."""
     torch.library.opcheck(getattr(torch.ops.repro_torch, name).default, _op_args(name, cuda_device))
+
+
+# ------------------------------------------------ the executors' graphs
+GRAPH_ECFG_SHAPES = ((1, 32), (4, 64))
+
+
+def _graph_engine(arch, dev):
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import EngineConfig, TorchServingEngine
+
+    ecfg = EngineConfig(buckets=(32, 64), batch_sizes=(1, 4), profile_reps=1)
+    return TorchServingEngine(get_config(arch).reduced(), ecfg, seed=3, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["orloj_gpt", "arctic_480b", "hymba_1_5b"])
+def test_replayed_logits_equal_eager_ones(cuda_device, arch):
+    """Each served shape is a captured graph: its replay's logits equal an
+    eager ``model.logits`` call on the same tokens bit for bit (the same
+    kernels on the same inputs), twice a shape with other tokens."""
+    import numpy as np
+
+    engine = _graph_engine(arch, cuda_device)
+    ex = engine.executor
+    rng = np.random.default_rng(5)
+    for shape in GRAPH_ECFG_SHAPES * 2:
+        tokens = rng.integers(1, engine.model.cfg.vocab_size, size=shape)
+        ex._run(tokens)
+        assert ex._shapes[shape][1].graph is not None
+        with torch.no_grad():
+            want = engine.model.logits(engine.params, {"tokens": torch.from_numpy(tokens).to(cuda_device)})
+        torch.cuda.synchronize()
+        assert torch.equal(ex.last_logits, want), (ex.last_logits - want).abs().max().item()
+
+
+@pytest.mark.cuda
+def test_served_launch_counts_equal_the_eager_counts(cuda_device):
+    """Launches counted over served batches (each shape's eager warm-up, its
+    capture, its replays) equal those of the same forwards run eagerly."""
+    import numpy as np
+
+    engine = _graph_engine("orloj_gpt", cuda_device)
+    calls = [np.ones(s, np.int32) for s in ((1, 32), (3, 64), (1, 32), (4, 64), (2, 32))]
+    ops.reset_launch_counts()
+    for tokens in calls:
+        engine.executor._run(tokens)
+    served = ops.launch_counts()
+    ops.reset_launch_counts()
+    seen = set()
+    with torch.no_grad():
+        for tokens in calls:
+            k = engine.executor.padded_batch_size(tokens.shape[0])
+            batch = {"tokens": torch.ones((k, tokens.shape[1]), dtype=torch.long, device=cuda_device)}
+            for _ in range(1 if (k, tokens.shape[1]) in seen else 2):  # the warm-up, then the run
+                engine.model.logits(engine.params, batch)
+            seen.add((k, tokens.shape[1]))
+    assert served == ops.launch_counts() and served["flash_attention"] > 0
+    ops.reset_launch_counts()
+
+
+@pytest.mark.cuda
+def test_decode_graph_matches_the_eager_step(cuda_device):
+    """The decode executor's graph against its body run eagerly, from one
+    seed: five steps with a full slot (the ring quirk's write at 0), an
+    empty one and two partial ones, equal bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import DecodeTorchExecutor
+
+    cfg = get_config("orloj_gpt")
+    graphed, eager = (DecodeTorchExecutor(cfg, max_batch=4, max_cache=64, seed=9, device=cuda_device)
+                      for _ in range(2))
+    assert graphed._program.graph is not None
+    for dec in (graphed, eager):
+        dec._valid = torch.tensor([64, 0, 5, 1], dtype=torch.int32, device=cuda_device)
+    before = dec_mod.launches
+    for _ in range(5):
+        graphed._decode_once()
+        eager._draw()
+        with torch.no_grad():
+            out = eager._step()
+        torch.cuda.synchronize()
+        for a, b in ((graphed.last_out, out), (graphed._kc, eager._kc), (graphed._vc, eager._vc),
+                     (graphed._valid, eager._valid)):
+            assert torch.equal(a, b)
+    assert dec_mod.launches == before + 10
+    assert graphed._valid.tolist() == [64, 0, 10, 6]
+
+
+@pytest.mark.cuda
+def test_a_forward_that_syncs_raises_at_capture(cuda_device):
+    """A forward that reads a value back to the host (``.item()``) cannot be
+    captured: the executor raises at the shape's first use and runs nothing
+    eagerly in its place, and the capture adds no launch."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serving.engine import EngineConfig, TorchExecutor
+
+    class Syncing(Model):
+        def logits(self, params, batch):
+            batch["tokens"].sum().item()
+            return super().logits(params, batch)
+
+    cfg = get_config("orloj_gpt").reduced()
+    model = Syncing(cfg, device=cuda_device)
+    params = model.init(torch.Generator(device=cuda_device).manual_seed(0))
+    ex = TorchExecutor(model, params, EngineConfig(buckets=(32,), batch_sizes=(1,)))
+    ops.reset_launch_counts()
+    with pytest.raises(RuntimeError):
+        ex._run(np.ones((1, 32), np.int32))
+    assert (1, 32) not in ex._warm
+    assert ops.launch_counts()["flash_attention"] == cfg.n_layers  # the warm-up's alone
+    ops.reset_launch_counts()
