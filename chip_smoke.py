@@ -110,15 +110,21 @@ Phases, each reported on its own lines; any failure exits non-zero:
    per model, and every flash call of one cell of each model, served again
    on a new engine (each shape's eager warm-up), held against the plain
    version;
-13. training (``repro_torch.launch.train.train``, the CLI's body): T1,
-   full-width orloj_gpt 50 steps at (8, 256), the loss must improve; T2,
-   GLM-4-9B at full width cut to 4 layers with its recomputation and loss
-   chunks of 512, 5 steps at (2, 1024); each with its ms/step, the corpus's
-   host share, peak memory, launches and one profiled step (busy, idle).
-   T3 and T4: one train step on the card against the CPU (loss, gradient
-   norm, every gradient leaf, the parameters after AdamW) at GLM-4's widths
-   cut to 1 layer and a 512-word vocabulary, full-width orloj_gpt, Arctic
-   ``.reduced(n_experts=16)`` and Hymba ``.reduced()``;
+13. training (``repro_torch.launch.train.train``, the CLI's body, whose
+   step is a ``TrainProgram``: step 1 eager, every later step a replay of
+   its CUDA graph): T1, full-width orloj_gpt 50 steps at (8, 256), the loss
+   must improve; T2, GLM-4-9B at full width cut to 4 layers with its
+   recomputation and loss chunks of 512, 5 steps at (2, 1024); each with
+   its ms/step, the corpus's host share, peak memory, launches and one
+   profiled replay (busy, idle); then the same loop with its step eager
+   from the same weights and batches: first and median ms/step eager →
+   graphed, peak and reserved memory, and the two loops' losses
+   (bit-identical, or within 1e-4 relative).  T3 and T4: one train step on
+   the card, replayed from the program's graph on the drawn weights,
+   against the CPU (loss, gradient norm, every gradient leaf, the
+   parameters after AdamW) at GLM-4's widths cut to 1 layer and a 512-word
+   vocabulary, full-width orloj_gpt, Arctic ``.reduced(n_experts=16)`` and
+   Hymba ``.reduced()``;
 14. dryrun: ``repro_torch.launch.dryrun.run_one`` on the 16×16 production
    mesh (a fake process group of 256 ranks; the DTensors' shards are meta
    tensors, so nothing runs on the card) for GLM-4-9B × train_4k, Arctic ×
@@ -2385,18 +2391,22 @@ TRAIN_T2 = dict(steps=5, batch=2, seq=1024)  # S 1024 = 2 loss chunks of 512
 
 
 def _train_phase(cfg, label: str, must_launch: tuple[str, ...], **kw) -> tuple[dict[str, int], dict]:
-    """``repro_torch.launch.train.train`` on the card (the CLI's body), the
-    launch counters set to 0 just before and read just after; then its
+    """``repro_torch.launch.train.train`` on the card (the CLI's body, its
+    step a ``TrainProgram``: step 1 eager, then replays of its CUDA graph),
+    the launch counters set to 0 just before and read just after; then its
     losses, ms/step (median of the steps after the first), the corpus's
     host share of a step, peak memory, each kernel's launches, and one more
-    step under the profiler (its batch drawn first): device busy time and
-    idle share.  Fails on a non-finite loss or a kernel of ``must_launch``
-    that was not launched."""
+    step, a replay, under the profiler (its batch drawn first): device busy
+    time and idle share.  Then the same loop with its step eager
+    (:func:`_eager_train`) beside it.  Fails on a non-finite loss, a kernel
+    of ``must_launch`` that was not launched, a step that was not captured,
+    or losses of the two loops further apart than T3's loss tolerance
+    (1e-4 relative)."""
     import numpy as np
     import torch
 
     from repro_torch.kernels import ops
-    from repro_torch.launch.train import train
+    from repro_torch.launch.train import TrainProgram, train
 
     _release()
     torch.cuda.reset_peak_memory_stats()
@@ -2407,32 +2417,88 @@ def _train_phase(cfg, label: str, must_launch: tuple[str, ...], **kw) -> tuple[d
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     secs = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
+    peak, reserved = torch.cuda.max_memory_allocated(), torch.cuda.memory_reserved()
     TRAIN_PEAKS[label[label.index("(") + 1:label.index(")")]] = peak
     step_ms, data_ms = rec["step_ms"], rec["data_ms"]
     steady = sorted(step_ms[1:] or step_ms)
     share = sum(data_ms[1:] or data_ms) / sum(step_ms[1:] or step_ms)
+    data_med = sorted(data_ms)[len(data_ms) // 2]
     log(f"{label}: {len(losses)} steps at (batch {kw['batch']}, seq {kw['seq']}) in {secs:.1f} s: loss "
         f"{losses[0]:.4f} → {losses[-1]:.4f}; ms/step median {steady[len(steady) // 2]:.2f} (min "
         f"{steady[0]:.2f}, max {steady[-1]:.2f}; first step {step_ms[0]:.2f}) on the host's clock, of which "
-        f"the corpus (host) {share:.4f} of the steps' time (median {sorted(data_ms)[len(data_ms) // 2]:.2f} "
+        f"the corpus (host) {share:.4f} of the steps' time (median {data_med:.2f} "
         f"ms a batch); peak memory {peak} bytes; launches={counts}")
     if not all(math.isfinite(x) for x in losses):
         raise SystemExit(f"{label}: a loss is not finite: {losses}")
     for name in must_launch:
         if counts[name] <= 0:
             raise SystemExit(f"{label}: the training path launched no {name} kernel")
+    program = rec["train_step"]
+    if not isinstance(program, TrainProgram) or program.graph is None:
+        raise SystemExit(f"{label}: the train step was not captured as a CUDA graph")
     batch = next(rec["iterator"])
     params, opt_state = rec["params"], rec["opt_state"]
-    events = _profile(lambda: rec["train_step"](params, opt_state, batch), label, "one train step")
+    events = _profile(lambda: program(params, opt_state, batch), label, "one train step (a replay)")
     busy = sum(e.device_time_total for e in events) / 1e3
     info = dict(losses=losses, step_ms=steady[len(steady) // 2], data_share=share, peak=peak,
                 busy_ms=busy, first=float(np.mean(losses[: max(len(losses) // 5, 1)])),
                 last=float(np.mean(losses[-max(len(losses) // 5, 1):])))
     rec.clear()
-    del params, opt_state, batch
+    del params, opt_state, batch, program
     _release()
+
+    eager = _eager_train(cfg, **kw)
+    e_steady = sorted(eager["step_ms"][1:] or eager["step_ms"])
+    delta = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(losses, eager["losses"], strict=True))
+    same = losses == eager["losses"]
+    log(f"{label}: eager → graphed on the same weights and batches, ms on the host's clock (the corpus's "
+        f"draw included): first step {eager['step_ms'][0]:.2f} → {step_ms[0]:.2f} (the graphed one runs "
+        f"eagerly, then captures), median of the other {len(steady)} {e_steady[len(e_steady) // 2]:.2f} → "
+        f"{info['step_ms']:.2f}; the corpus {data_med:.2f} ms a batch, {share:.4f} of the graphed steps' "
+        f"time; a replay's profiled device busy {busy:.2f} ms, idle share {max(0.0, 1 - busy / info['step_ms']):.3f} "
+        f"of the graphed median; max_memory_allocated {eager['peak']} → {peak} bytes, memory_reserved "
+        f"{eager['reserved']} → {reserved}; losses over {len(losses)} steps "
+        f"{'bit-identical' if same else f'differ: max relative |Δ| {delta:.3e} (T3 tol 1e-4)'}")
+    if not same and delta > 1e-4:
+        raise SystemExit(f"{label}: the graphed loop's losses depart from the eager loop's")
     return counts, info
+
+
+def _eager_train(cfg, *, steps: int, batch: int, seq: int) -> dict:
+    """``launch.train.train``'s loop with its step eager
+    (``make_train_step``, as the multi-process DTensor loop runs it) from
+    the same weights (seed 0), AdamW schedule (``train``'s default lr 3e-4)
+    and corpus batches: each step's loss and ms on the host's clock (the
+    corpus's draw included, ending in the loss's read-back), the peak
+    memory and what the allocator holds after the loop."""
+    import torch
+
+    from repro_torch.data import DataConfig, make_train_iterator
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim.adamw import leaves
+
+    _release()
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    for p in leaves(params):
+        p.requires_grad_(True)
+    opt_state = adamw_init(params)
+    step = make_train_step(model, AdamWConfig(lr=3e-4, total_steps=steps, warmup_steps=max(steps // 10, 1)))
+    it = make_train_iterator(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, batch_size=batch), "cuda")
+    losses, step_ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        params, opt_state, loss = step(params, opt_state, next(it))
+        losses.append(float(loss))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    out = dict(losses=losses, step_ms=step_ms, peak=torch.cuda.max_memory_allocated(),
+               reserved=torch.cuda.memory_reserved())
+    del model, params, opt_state, step, it, loss
+    _release()
+    return out
 
 
 def run_train_orloj_gpt() -> list[dict[str, int]]:
@@ -2481,21 +2547,26 @@ def run_train_glm4() -> list[dict[str, int]]:
 
 def train_step_card_and_cpu(cfg, tokens, labels, lr: float = 1e-3):
     """One train step of the same weights (drawn on the card from seed 4)
-    and batch on the card and on the CPU, through the port's own step,
-    ``launch.train.make_train_step``; the gradients for the comparison are
-    taken first, by ``torch.autograd.grad`` of the same loss.  Returns each
-    side's (loss, gradient leaves, parameters after the step) and the
-    launches of the card's step."""
+    and batch on the card and on the CPU.  The card's is the replay of a
+    ``launch.train.TrainProgram``'s graph: the program's first call steps
+    eagerly and captures, the state is put back to the drawn weights and
+    fresh moments in place, and the second call replays the captured step
+    on it.  The CPU's is ``launch.train.make_train_step``.  The gradients
+    for the comparison are taken first, by ``torch.autograd.grad`` of the
+    same loss.  Returns each side's (loss, gradient leaves, parameters
+    after the step), the launches of the card's replay, and the largest
+    |Δ| between the replay's loss and parameters and the eager first
+    step's."""
     import torch
 
     from repro_torch.kernels import ops
-    from repro_torch.launch.train import make_train_step
+    from repro_torch.launch.train import TrainProgram, make_train_step
     from repro_torch.models import Model
     from repro_torch.optim import AdamWConfig, adamw_init
     from repro_torch.optim.adamw import leaves
 
     drawn = Model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(4))
-    side, counts = {}, {}
+    side, counts, replay_delta = {}, {}, 0.0
     for dev in ("cuda", "cpu"):
         model = Model(cfg, device=dev)
         params = _tree_copy(drawn, dev)  # the update is in place: each side its own copy
@@ -2505,16 +2576,32 @@ def train_step_card_and_cpu(cfg, tokens, labels, lr: float = 1e-3):
         grads = torch.autograd.grad(model.loss(params, batch), leaves(params), allow_unused=True,
                                     materialize_grads=True)
         opt = AdamWConfig(lr=lr, total_steps=10, warmup_steps=1)
-        ops.reset_launch_counts()
-        params, _, loss = make_train_step(model, opt)(params, adamw_init(params), batch)
+        opt_state = adamw_init(params)
         if dev == "cuda":
+            program = TrainProgram(model, opt, params, opt_state, tuple(tokens.shape))
+            _, _, eager_loss = program(params, opt_state, batch)
+            eager = [float(eager_loss)] + [t.detach().clone() for t in leaves(params)]
+            with torch.no_grad():
+                for t, t0 in zip(leaves(params), leaves(drawn), strict=True):
+                    t.copy_(t0)
+                for t in leaves(opt_state["m"]) + leaves(opt_state["v"]) + [opt_state["step"]]:
+                    t.zero_()
+            ops.reset_launch_counts()
+            _, _, loss = program(params, opt_state, batch)
             torch.cuda.synchronize()
             counts = ops.launch_counts()
+            if program.graph is None:
+                raise SystemExit(f"{cfg.name}: the train step was not captured")
+            replay_delta = max([abs(float(loss) - eager[0])] + [
+                (t.detach() - t0).abs().max().item() for t, t0 in zip(leaves(params), eager[1:], strict=True)])
+            del program, eager
+        else:
+            params, _, loss = make_train_step(model, opt)(params, opt_state, batch)
         side[dev] = (float(loss), [g.cpu() for g in grads], [t.detach().cpu() for t in leaves(params)])
-        del model, params, grads
+        del model, params, grads, opt_state
     del drawn
     _release()
-    return side["cuda"], side["cpu"], counts
+    return side["cuda"], side["cpu"], counts, replay_delta
 
 
 def train_step_errors(card, cpu, lr: float) -> dict:
@@ -2548,17 +2635,19 @@ def train_step_errors(card, cpu, lr: float) -> dict:
 
 def _train_step_pair(cfg, label: str, rows: int, seq: int, lr: float = 1e-3) -> dict[str, int]:
     """T3/T4: :func:`train_step_card_and_cpu` on a seeded batch, held by
-    :func:`train_step_errors`.  Returns the card step's launches."""
+    :func:`train_step_errors`.  Returns the launches of the card's replayed
+    step."""
     import numpy as np
 
     rng = np.random.default_rng(4)
     tokens = rng.integers(0, cfg.vocab_size, size=(rows, seq))
     labels = rng.integers(0, cfg.vocab_size, size=(rows, seq))
     labels[0, :5] = -1
-    card, cpu, counts = train_step_card_and_cpu(cfg, tokens, labels, lr)
+    card, cpu, counts, replay_delta = train_step_card_and_cpu(cfg, tokens, labels, lr)
     e = train_step_errors(card, cpu, lr)
     (l1, l2), (n1, n2) = e["loss"], e["grad_norm"]
-    log(f"{label}: one train step at ({rows}, {seq}), card vs CPU: loss {l1:.6f} vs {l2:.6f}, gradient "
+    log(f"{label}: one train step at ({rows}, {seq}), the card's graph replayed (max |Δ| to the eager "
+        f"step on the same state {replay_delta:.3e}) vs CPU: loss {l1:.6f} vs {l2:.6f}, gradient "
         f"norm {n1:.6f} vs {n2:.6f}, gradient leaves max err {e['grad_err']:.3e} of the leaf's largest (tol "
         f"1e-3); parameters after the AdamW step: {e['settled'][0]} of {e['settled'][1]} with a settled "
         f"sign, max err {e['settled_err']:.3e} (tol 1e-5), all within {e['loose_err']:.3e} (tol 2·lr = "

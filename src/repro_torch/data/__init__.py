@@ -1,3 +1,3 @@
-from .pipeline import DataConfig, SyntheticCorpus, make_train_iterator
+from .pipeline import CdfCorpus, DataConfig, SyntheticCorpus, make_train_iterator
 
-__all__ = ["DataConfig", "SyntheticCorpus", "make_train_iterator"]
+__all__ = ["CdfCorpus", "DataConfig", "SyntheticCorpus", "make_train_iterator"]

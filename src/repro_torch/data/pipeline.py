@@ -4,11 +4,13 @@ The counterpart of :mod:`repro.data.pipeline`.  :class:`DataConfig` and
 :class:`SyntheticCorpus` are the reference's, line for line (pure numpy:
 the same seed gives the same token stream in both packages; a test holds
 their source to the reference's).  The corpus draws every token on the
-host, a Zipf unigram draw (``rng.choice`` over the vocabulary) or a Markov
-continuation, so its time grows with the vocabulary; it is the reference's
-stream, and stays as it is.  :func:`make_train_iterator` yields the
-batches as int64 tensors on one device, or, given a device mesh, placed
-on it as the reference places them.
+host, a Zipf unigram draw or a Markov continuation.
+:func:`make_train_iterator` draws from :class:`CdfCorpus`, which gives
+the same stream: its unigram draws search a CDF computed once, where the
+reference's ``rng.choice`` checks and sums the whole distribution at every
+draw (O(V): ~1 ms a draw at GLM-4's 151,552 words).  It yields the batches
+as int64 tensors on one device, or, given a device mesh, placed on it as
+the reference places them.
 """
 
 from __future__ import annotations
@@ -61,6 +63,31 @@ class SyntheticCorpus:
         return {"tokens": rows[:, :-1], "labels": rows[:, 1:]}
 
 
+class CdfCorpus(SyntheticCorpus):
+    """:class:`SyntheticCorpus`'s token stream, each unigram draw taking
+    O(log V): ``Generator.choice(V, p=unigram)`` computes ``cdf =
+    p.cumsum(); cdf /= cdf[-1]`` and returns ``cdf.searchsorted(u,
+    side="right")`` for one ``u = rng.random()``.  This corpus computes the
+    CDF once and does the rest, taking the same double from the same
+    stream."""
+
+    def __init__(self, cfg: DataConfig):
+        super().__init__(cfg)
+        self.cdf = self.unigram.cumsum()
+        self.cdf /= self.cdf[-1]
+
+    def sample_row(self) -> np.ndarray:
+        cfg, rng, cdf = self.cfg, self.rng, self.cdf
+        out = np.empty(cfg.seq_len + 1, np.int32)
+        out[0] = cdf.searchsorted(rng.random(), side="right")
+        for i in range(1, cfg.seq_len + 1):
+            if rng.random() < 0.7:  # Markov continuation
+                out[i] = self.succ[out[i - 1], rng.integers(0, 4)]
+            else:
+                out[i] = cdf.searchsorted(rng.random(), side="right")
+        return out
+
+
 def make_train_iterator(
     cfg: DataConfig, device: str | torch.device = "cuda", *, mesh=None
 ) -> Iterator[dict[str, torch.Tensor]]:
@@ -68,8 +95,9 @@ def make_train_iterator(
     int64, on ``device`` (the card unless the caller asks for the CPU).
     With a device ``mesh``, each batch is a pair of DTensors on it instead,
     the batch over (pod, data) as the reference places it (each rank keeps
-    its own rows)."""
-    corpus = SyntheticCorpus(cfg)
+    its own rows).  The tokens are :class:`SyntheticCorpus`'s, drawn by
+    :class:`CdfCorpus`."""
+    corpus = CdfCorpus(cfg)
     if mesh is not None:
         from ..models.sharding import batch_spec, place
 

@@ -13,8 +13,13 @@ which sets up the process group), the parameters and batches are
 DTensors on :func:`.mesh.make_debug_mesh`; in a process of its own it
 has one device, the (1, 1) mesh, on which every spec resolves to
 ``None``, so the loop keeps plain tensors and builds no process group.
-The step is eager: ``Model.loss``, ``torch.autograd.grad`` (through the
-backward kernels on the card), then the in-place AdamW update.
+A step is ``Model.loss``, ``torch.autograd.grad`` (through the backward
+kernels on the card), then the in-place AdamW update
+(:func:`make_train_step`).  On one device the loop runs it as a
+:class:`TrainProgram`, the counterpart of the reference's ``@jax.jit``
+step: on the card the first step runs eagerly and every later one
+replays a CUDA graph of the same step.  The multi-process DTensor step
+runs eagerly: its collectives are not captured.
 
 A restore from ``--ckpt-dir`` resumes the parameters only, with a fresh
 optimizer state and the data stream from its start, as the reference's
@@ -36,6 +41,7 @@ from ..checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from ..configs import get_config
 from ..data import DataConfig, make_train_iterator
 from ..device import resolve_device
+from ..kernels import ops
 from ..models import Model
 from ..models.config import ModelConfig
 from ..models.sharding import param_specs, place
@@ -60,6 +66,77 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig):
     return train_step
 
 
+class TrainProgram:
+    """The train step as one program, the counterpart of the reference's
+    ``@jax.jit`` step: ``program(params, opt_state, batch) -> (params,
+    opt_state, loss)``, as :func:`make_train_step`'s step, over the
+    ``params`` and ``opt_state`` it was built with (other trees raise: a
+    graph reads the tensors it captured) and batches of ``shape``.
+
+    Each call copies the batch into static int64 ``tokens`` and ``labels``
+    buffers and runs :func:`make_train_step`'s body on them.  On a CUDA
+    device the first call runs the body eagerly on the program's stream
+    (step 1 of the run, which also loads the kernels and gives cuBLAS its
+    workspace), then captures the same body into a CUDA graph whose memory
+    comes from the program's own pool; every later call replays the graph
+    and returns the graph's static loss, which the next replay overwrites.
+    The state's tensors are updated in place, ``step`` included, so the
+    replays go through the same parameter states as an eager loop.  The
+    capture's kernel calls launch nothing: their launch counts are taken
+    back and added again at each replay (:func:`ops.captured_launches`).  A
+    capture that fails raises; nothing runs eagerly in its place.  On the
+    CPU every call runs the body eagerly."""
+
+    def __init__(self, model: Model, opt_cfg: AdamWConfig, params, opt_state: dict,
+                 shape: tuple[int, int]):
+        self.params, self.opt_state = params, opt_state
+        self.device = model.device
+        self.body = make_train_step(model, opt_cfg)
+        self.tokens = torch.zeros(shape, dtype=torch.int64, device=self.device)
+        self.labels = torch.zeros(shape, dtype=torch.int64, device=self.device)
+        self.graph = None
+        if self.device.type == "cuda":
+            self.stream = torch.cuda.Stream(self.device)
+            self.pool = torch.cuda.graph_pool_handle()
+
+    def _step(self) -> torch.Tensor:
+        _, _, loss = self.body(self.params, self.opt_state, {"tokens": self.tokens, "labels": self.labels})
+        return loss
+
+    def __call__(self, params, opt_state: dict, batch: dict[str, torch.Tensor]):
+        if params is not self.params or opt_state is not self.opt_state:
+            raise ValueError("a TrainProgram steps the parameters and optimizer state it was built with")
+        self.tokens.copy_(batch["tokens"])
+        self.labels.copy_(batch["labels"])
+        if self.device.type != "cuda":
+            return params, opt_state, self._step()
+        caller = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(caller)
+        if self.graph is None:
+            loss = self._capture()
+        else:
+            with torch.cuda.stream(self.stream):
+                self.graph.replay()
+            ops.add_launches(self.launches)
+            loss = self.loss
+        caller.wait_stream(self.stream)
+        return params, opt_state, loss
+
+    def _capture(self) -> torch.Tensor:
+        """Step 1 eagerly on the stream, then the capture of the step."""
+        with torch.cuda.stream(self.stream):
+            loss = self._step()
+        self.stream.synchronize()
+        torch.cuda.empty_cache()  # the eager step's cached blocks, beside the graph's pool
+        graph = torch.cuda.CUDAGraph()
+        with ops.captured_launches() as self.launches, torch.cuda.graph(
+            graph, pool=self.pool, stream=self.stream
+        ):
+            self.loss = self._step()
+        self.graph = graph
+        return loss
+
+
 def _device_name(dev: torch.device) -> str:
     if dev.type == "cuda" and dev.index is None:
         return f"cuda:{torch.cuda.current_device()}"
@@ -80,8 +157,8 @@ def train(
 ) -> list[float]:
     """Train ``cfg`` for ``steps`` steps and return each step's loss.  With a
     ``record`` dict, also leaves there the model, the parameters, the
-    optimizer state, the step function and the data iterator after the
-    last step, and each step's wall time and the data pipeline's share of
+    optimizer state, the step function (a :class:`TrainProgram` on one
+    device) and the data iterator after the last step, and each step's wall time and the data pipeline's share of
     it (``step_ms``, ``data_ms``: host clock, the step ending in the
     loss's read-back)."""
     if cfg.frontend:
@@ -105,7 +182,6 @@ def train(
 
     data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, batch_size=batch)
     it = make_train_iterator(data_cfg, dev, mesh=mesh)
-    train_step = make_train_step(model, opt_cfg)
 
     start = 0
     if ckpt_dir:
@@ -116,6 +192,10 @@ def train(
                 p.requires_grad_(True)
             start = got
             print(f"restored step {got}")
+    if mesh is None:  # built over the restored parameters
+        train_step = TrainProgram(model, opt_cfg, params, opt_state, (batch, seq))
+    else:
+        train_step = make_train_step(model, opt_cfg)
 
     losses: list[float] = []
     step_ms: list[float] = []

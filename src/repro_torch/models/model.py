@@ -144,8 +144,10 @@ class Model(nn.Module):
         remat = cfg.remat and torch.is_grad_enabled()
         for i, bp in enumerate(params["blocks"]):
             if remat:
+                # A block draws no random numbers, so its recomputation needs
+                # no saved RNG state (reading it is refused under graph capture).
                 x, da = ckpt.checkpoint(block_apply, bp, x, cfg, i, use_reentrant=False,
-                                        **_remat_kwargs(cfg))
+                                        preserve_rng_state=False, **_remat_kwargs(cfg))
             else:
                 x, da = block_apply(bp, x, cfg, i)
             aux = aux + da

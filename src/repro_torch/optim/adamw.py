@@ -8,11 +8,14 @@ the reference's order, dict keys sorted); the bias corrections are
 biases and the embedding included; ``m`` and ``v`` start as zeros of each
 parameter's shape and type, and ``step`` is an int32 tensor.
 
-:func:`adamw_update` updates the parameters and the moments **in place**
-(the reference returns new trees): at GLM-4-9B's width the parameters and
-moments are 25 GB, and a second copy would not fit beside the gradients.
-Each leaf's new values are computed as the reference computes them and
-then copied in.
+:func:`adamw_update` updates the parameters, the moments and ``step``
+**in place** (the reference returns new trees): at GLM-4-9B's width the
+parameters and moments are 25 GB, and a second copy would not fit beside
+the gradients.  Each leaf's new values are computed as the reference
+computes them and then copied in.  Every value the update reads is a
+tensor on the parameters' device, so the update can be captured in a CUDA
+graph (:class:`repro_torch.launch.train.TrainProgram`) that replays it on
+the same tensors.
 """
 
 from __future__ import annotations
@@ -75,13 +78,14 @@ def adamw_init(params: Params) -> dict:
 def adamw_update(cfg: AdamWConfig, params: Params, grads: Params, state: dict) -> tuple[Params, dict]:
     """One AdamW step.  ``grads`` has the structure of ``params``, or is the
     list of the gradients of its :func:`leaves`, in their order.  Updates
-    ``params`` and the moments in place and returns (params, state)."""
-    step = state["step"] + 1
+    ``params``, the moments and ``state["step"]`` in place and returns
+    (params, state), the same objects."""
     flat_p, flat_g = leaves(params), leaves(grads)
     flat_m, flat_v = leaves(state["m"]), leaves(state["v"])
     if not len(flat_p) == len(flat_g) == len(flat_m) == len(flat_v):
         raise ValueError(f"{len(flat_p)} parameters, {len(flat_g)} gradients, {len(flat_m)} and "
                          f"{len(flat_v)} moments")
+    step = state["step"].add_(1)
     gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in flat_g))
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     lr = cosine_schedule(cfg, step)
@@ -98,4 +102,4 @@ def adamw_update(cfg: AdamWConfig, params: Params, grads: Params, state: dict) -
         p.copy_(p - lr * upd.to(p.dtype))
         m.copy_(m2)
         v.copy_(v2)
-    return params, {"m": state["m"], "v": state["v"], "step": step}
+    return params, state

@@ -766,7 +766,8 @@ def _chip_smoke():
 def test_train_step_on_the_card_matches_the_cpu(cuda_device, arch):
     """GLM-4 (RMSNorm, GQA), Arctic with 16 experts (the gates' backward),
     Hymba (its window of 64 shorter than the 96 positions): one train step
-    on the card, through the backward kernels, against the CPU's."""
+    on the card, through the backward kernels, replayed from the train
+    program's graph, against the CPU's."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -777,7 +778,7 @@ def test_train_step_on_the_card_matches_the_cpu(cuda_device, arch):
     labels = rng.integers(0, cfg.vocab_size, size=(2, 96))
     labels[0, :5] = -1
     smoke = _chip_smoke()
-    card, cpu, counts = smoke.train_step_card_and_cpu(cfg, tokens, labels, 1e-3)
+    card, cpu, counts, _ = smoke.train_step_card_and_cpu(cfg, tokens, labels, 1e-3)
     for name in ("flash_attention_bwd", "rmsnorm_bwd") + (("moe_gating_bwd",) if cfg.is_moe else ()):
         assert counts[name] > 0, name
     errors = smoke.train_step_errors(card, cpu, 1e-3)
@@ -931,4 +932,122 @@ def test_a_forward_that_syncs_raises_at_capture(cuda_device):
         ex._run(np.ones((1, 32), np.int32))
     assert (1, 32) not in ex._warm
     assert ops.launch_counts()["flash_attention"] == cfg.n_layers  # the warm-up's alone
+    ops.reset_launch_counts()
+
+
+# ------------------------------------------------ the training step's graph
+def _train_state(model, dev, seed=6):
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.adamw import leaves
+
+    params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    for p in leaves(params):
+        p.requires_grad_(True)
+    return params, adamw_init(params)
+
+
+def _train_batches(cfg, dev, n, b=2, s=64):
+    import numpy as np
+
+    rng = np.random.default_rng(8)
+    out = []
+    for _ in range(n):
+        tokens, labels = (torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(b, s))).to(dev)
+                          for _ in range(2))
+        labels[0, :4] = -1
+        out.append({"tokens": tokens, "labels": labels})
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", [False, True])
+def test_graphed_train_loop_equals_the_eager_loop(cuda_device, remat):
+    """Four steps of a ``TrainProgram`` (step 1 eager, then three replays of
+    its graph) and of ``make_train_step`` from the same weights and batches
+    at a reduced GLM-4, with and without recomputation: the losses and the
+    final parameters bit-identical (the same deterministic kernels on the
+    same states), or else within T3's tolerances (loss 1e-4 relative, a
+    parameter 2·lr), the largest |Δ| printed."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import TrainProgram, make_train_step
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.adamw import leaves
+
+    cfg = get_config("glm4_9b").reduced(remat=remat)
+    model = Model(cfg, device=cuda_device)
+    opt = AdamWConfig(lr=1e-3, total_steps=4, warmup_steps=1)
+    batches = _train_batches(cfg, cuda_device, 4)
+    (p1, s1), (p2, s2) = _train_state(model, cuda_device), _train_state(model, cuda_device)
+    program, eager = TrainProgram(model, opt, p1, s1, (2, 64)), make_train_step(model, opt)
+    l1, l2 = [], []
+    for batch in batches:
+        p1, s1, loss = program(p1, s1, batch)
+        l1.append(float(loss))
+        p2, s2, loss = eager(p2, s2, batch)
+        l2.append(float(loss))
+    assert program.graph is not None and int(s1["step"]) == int(s2["step"]) == 4
+    d_loss = max(abs(a - b) / abs(b) for a, b in zip(l1, l2))
+    d_param = max((a - b).abs().max().item() for a, b in zip(leaves(p1), leaves(p2), strict=True))
+    print(f"remat={remat}: losses {l1} vs {l2}: max relative |Δ| {d_loss:.3e}, parameters max |Δ| {d_param:.3e}")
+    assert d_loss <= 1e-4 and d_param <= 2 * opt.lr
+    assert l1[-1] != l1[0]
+
+
+@pytest.mark.cuda
+def test_replayed_train_step_launches_equal_the_eager_step(cuda_device):
+    """The launches counted over a replay of the train step equal those of
+    the program's eager first step: the capture's counts are taken back and
+    added again at each replay."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import TrainProgram
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig
+
+    cfg = get_config("glm4_9b").reduced(remat=True)
+    model = Model(cfg, device=cuda_device)
+    params, state = _train_state(model, cuda_device)
+    program = TrainProgram(model, AdamWConfig(lr=1e-3, total_steps=3, warmup_steps=1), params, state, (2, 64))
+    batches = _train_batches(cfg, cuda_device, 2)
+    ops.reset_launch_counts()
+    program(params, state, batches[0])
+    eager = ops.launch_counts()
+    ops.reset_launch_counts()
+    program(params, state, batches[1])
+    torch.cuda.synchronize()
+    replayed = ops.launch_counts()
+    assert program.graph is not None and replayed == eager
+    assert replayed["flash_attention"] == 2 * replayed["flash_attention_bwd"] == 2 * cfg.n_layers
+    assert replayed["rmsnorm_bwd"] > 0
+    ops.reset_launch_counts()
+
+
+@pytest.mark.cuda
+def test_a_train_step_that_syncs_raises_at_capture(cuda_device):
+    """A loss that reads a value back to the host (``.item()``) cannot be
+    captured: the program's first call takes its eager step, then raises at
+    the capture, which adds no launch; a second call raises again, so no
+    step runs eagerly in the graph's place."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import TrainProgram
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig
+
+    class Syncing(Model):
+        def loss(self, params, batch):
+            batch["labels"].max().item()
+            return super().loss(params, batch)
+
+    cfg = get_config("orloj_gpt").reduced()
+    model = Syncing(cfg, device=cuda_device)
+    params, state = _train_state(model, cuda_device)
+    program = TrainProgram(model, AdamWConfig(), params, state, (2, 64))
+    batch = _train_batches(cfg, cuda_device, 1)[0]
+    for steps in (1, 2):
+        ops.reset_launch_counts()
+        with pytest.raises(RuntimeError):
+            program(params, state, batch)
+        assert program.graph is None and int(state["step"]) == steps
+        counts = ops.launch_counts()
+        assert counts["flash_attention"] == counts["flash_attention_bwd"] == cfg.n_layers  # the eager step's
     ops.reset_launch_counts()
