@@ -35,7 +35,12 @@ Phases, each reported on its own lines; any failure exits non-zero:
    and 320) and MusicGen's bf16 heads, decode over Hymba's 1024-slot ring
    (float32 and bf16 caches), at InternVL2's group of 7 and in bf16/bf16 at
    MusicGen's group of 1, rmsnorm at Hymba's (2048, 1600); decode at head
-   size 512 (xLSTM-1.3B's token path: a group of 1 in float32);
+   size 512 (xLSTM-1.3B's token path: a group of 1 in float32); decode at
+   Granite-34B's g 48 over 4,096 slots (float32, and a bf16 cache with
+   ragged valid_len), GLM-4-9B's g 16 at S 7 and over its bf16 cache at
+   4,096 and 32,768 slots, DBRX's g 6; then the decode kernel on each
+   route (tensor cores over bf16 and float32 caches, head size 512, SIMT)
+   called twice and replayed in a CUDA graph, all three bit-identical;
 3b. backward vs plain: each backward kernel, through the ``ops``
    operators' autograd formulas, against autograd through its plain version on the same
    inputs and output gradients (relative to the largest gradient: flash in
@@ -69,7 +74,8 @@ Phases, each reported on its own lines; any failure exits non-zero:
 6. glm4: GLM-4-9B at full width and full depth (40 layers, d 4096, 32
    query heads on 2 KV heads of 128, vocab 151552; 37.6 GB of float32
    weights): decode ≡ forward, the decode step's time at B 1 and 8 (cache
-   256) beside the weight-read bound, its launches per step, a profile of
+   256) and at B 8 over its default bf16 cache at 32,768 slots beside the
+   weight-read bound and the step's byte bound, its launches per step, a profile of
    one step, peak memory; then its widths cut to 1 layer and a 512-word
    vocabulary, decode steps on the card against the same weights on the
    CPU with a float32 and a bfloat16 cache;
@@ -199,7 +205,8 @@ sys.path.insert(0, str(ROOT / "src"))
 # and bf16.  `bound_ms` counts float32 work at the SIMT rate (as since the
 # port began); the flash kernel's `tc_bound_ms` counts it on the tensor
 # cores, three TF32 passes per float32 product, as the flash backward's
-# `bound_ms` does.
+# `bound_ms` does; decode's `bound_ms` prices its work on the route that
+# the kernel's plan takes.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 TF32_FLOP_PER_S = 495e12
@@ -360,23 +367,31 @@ def flash_tc_bound(q, k, lengths, causal: bool, window: int) -> tuple[float, str
     import torch
 
     nbytes, flops = flash_work(q, k, lengths, causal, window)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     if q.dtype == torch.float32:
-        t_ops = 3 * flops / TF32_FLOP_PER_S * 1e3
-    else:
-        t_ops = flops / BF16_FLOP_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        return _bound(nbytes, 3 * flops, TF32_FLOP_PER_S)
+    return _bound(nbytes, flops, BF16_FLOP_PER_S)
 
 
-def decode_bound(q, k_cache, valid_len) -> tuple[float, str]:
+def decode_bound(q, k_cache, valid_len, route: str) -> tuple[float, str]:
     """Least time (ms) for decode attention on these inputs: q and the
     output once, the valid part of the K/V cache once (in the cache's own
-    type), and 4·hd FLOPs per (query head, valid key)."""
+    type), and 4·hd FLOPs per (query head, valid key), at the rate of the
+    kernel's ``route`` (``decode_plan``'s): the SIMT and head-size-512
+    routes at the float32 SIMT rate; the tensor cores over a float32 cache
+    as three TF32 passes, over a bf16 cache as bf16 products, one for each
+    bf16 part of the queries' type (three of float32, one of bf16)."""
+    import torch
+
     b, h, hd = q.shape
     kv = k_cache.shape[1]
     valid = int(valid_len.clamp(0, k_cache.shape[2]).sum())
     nbytes = q.element_size() * 2 * b * h * hd + k_cache.element_size() * 2 * valid * kv * hd + 4 * b
-    return _bound(nbytes, 4 * hd * valid * h)
+    flops = 4 * hd * valid * h
+    if route != "tensor_cores":
+        return _bound(nbytes, flops)
+    if k_cache.dtype == torch.float32:
+        return _bound(nbytes, 3 * flops, TF32_FLOP_PER_S)
+    return _bound(nbytes, (3 if q.dtype == torch.float32 else 1) * flops, BF16_FLOP_PER_S)
 
 
 def rmsnorm_bound(x) -> tuple[float, str]:
@@ -408,9 +423,9 @@ def flash_bwd_bound(q, k, lengths, causal: bool, window: int) -> tuple[float, st
     pairs = fwd_flops // (4 * hd)
     nbytes = q.element_size() * (4 * b * h * s * hd + 4 * b * k.shape[1] * s * hd) + 4 * b * h * s
     flops = 10 * hd * pairs
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (3 * flops / TF32_FLOP_PER_S if q.dtype == torch.float32 else flops / BF16_FLOP_PER_S) * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    if q.dtype == torch.float32:
+        return _bound(nbytes, 3 * flops, TF32_FLOP_PER_S)
+    return _bound(nbytes, flops, BF16_FLOP_PER_S)
 
 
 def rmsnorm_bwd_bound(x) -> tuple[float, str]:
@@ -428,28 +443,30 @@ def gating_bwd_bound(logits, k: int) -> tuple[float, str]:
     return _bound(2 * logits.element_size() * t * e + 8 * t * k, 6 * t * e)
 
 
-def _bound(nbytes: float, flops: float) -> tuple[float, str]:
+def _bound(nbytes: float, flops: float, flop_per_s: float = FP32_FLOP_PER_S) -> tuple[float, str]:
+    """The larger of the bytes' time at the HBM rate and the FLOPs' at
+    ``flop_per_s``, in ms, and which it was."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _attention_ok(out, want, bf16_input: bool) -> tuple[float, bool]:
+def _attention_ok(out, want) -> tuple[float, bool]:
     """The max abs error of an attention kernel's output against its plain
-    version's, and whether it is within tolerance: F32_TOL; over a bf16
-    input BF16_TOL (one bf16 rounding), or, where the output is bf16 and of
-    magnitude 4 or more, one bf16 step of the value (0.03125 in [4, 8)):
-    two roundings of nearly equal float32 values may lie a step apart."""
+    version's, and whether it is within tolerance.  A float32 output (float32
+    queries, over a float32 or a bf16 cache: both sides compute in float32 on
+    the same values): F32_TOL.  A bf16 output (bf16 inputs): BF16_TOL (one
+    bf16 rounding), or, where it is of magnitude 4 or more, one bf16 step of
+    the value (0.03125 in [4, 8)): two roundings of nearly equal float32
+    values may lie a step apart."""
     import torch
 
     diff = (out.float() - want.float()).abs()
     err = diff.max().item()
-    if not bf16_input:
+    if out.dtype != torch.bfloat16:
         return err, math.isfinite(err) and err <= F32_TOL
-    bound = torch.full_like(diff, BF16_TOL)
-    if out.dtype == torch.bfloat16:
-        step = torch.exp2(torch.floor(torch.log2(want.float().abs().clamp_min(1e-30))) - 7)
-        bound = torch.maximum(bound, step)
+    step = torch.exp2(torch.floor(torch.log2(want.float().abs().clamp_min(1e-30))) - 7)
+    bound = torch.maximum(torch.full_like(diff, BF16_TOL), step)
     return err, math.isfinite(err) and bool((diff <= bound).all())
 
 
@@ -490,14 +507,14 @@ def ptxas_report(out: str) -> list[tuple[str, str]]:
     for ln in out.splitlines():
         # A type named twice is mangled the second time as a substitution
         # (S_, S0_, ...): bf16 queries over a bf16 cache read "13__nv_bfloat16S2_".
-        m = re.search(r"Function properties for .*?\d([a-z_]+_kernel)I((?:f|13__nv_bfloat16|S\d*_)+)"
-                      r"((?:L[a-z]\d+E)*)", ln)
+        m = re.search(r"Function properties for .*?\d([a-z_]+_kernel)(?:I((?:f|13__nv_bfloat16|S\d*_)+)"
+                      r"((?:L[a-z]\d+E)*))?", ln)
         if m:
             types: list[str] = []
-            for t in re.findall(r"f|13__nv_bfloat16|S\d*_", m.group(2)):
+            for t in re.findall(r"f|13__nv_bfloat16|S\d*_", m.group(2) or ""):
                 types.append("float" if t == "f" else "bf16" if t[0] == "1" else types[-1])
-            args = [*types, *re.findall(r"L[a-z](\d+)E", m.group(3))]
-            name = f"{m.group(1)}<{','.join(args)}>"
+            args = [*types, *re.findall(r"L[a-z](\d+)E", m.group(3) or "")]
+            name = f"{m.group(1)}<{','.join(args)}>" if m.group(2) else m.group(1)
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m and name:
@@ -587,7 +604,7 @@ def phase_kernels_vs_plain() -> dict[str, float]:
         out = fa.flash_attention_cuda(q, k, v, lt, causal=True, window=window, softcap=cap)
         want = ref.flash_attention_ref(q, k, v, lengths=lt, causal=True, window=window, softcap=cap)
         torch.cuda.synchronize()
-        err, ok = _attention_ok(out, want, dt == bf16)
+        err, ok = _attention_ok(out, want)
         tol = BF16_TOL if dt == bf16 else F32_TOL
         ok = ok and out.dtype == dt
         log(f"kernel vs plain: flash_attention {name}: max_abs_err {err:.3e} (tol {tol}) {'ok' if ok else 'FAIL'}")
@@ -624,6 +641,14 @@ def phase_kernels_vs_plain() -> dict[str, float]:
         ("glm4 g 16 (8,32->2,256,128) valid_len [0,256,31,33,96,97,128,200] f32", 8, 32, 2, 256, 128,
          [0, 256, 31, 33, 96, 97, 128, 200]),
         ("granite MQA g 48 (4,48->1,256,128) valid_len [256,0,77,255] f32", 4, 48, 1, 256, 128, [256, 0, 77, 255]),
+        ("granite MQA g 48 S=4096 (4,48->1,4096,128) f32", 4, 48, 1, 4096, 128, None),
+        ("f32 q, bf16 cache: granite MQA g 48 S=4096 (4,48->1,4096,128) valid_len [4096,0,1000,4095]", 4, 48, 1,
+         4096, 128, [4096, 0, 1000, 4095]),
+        ("g 16 S=7 (2,32->2,7,128) valid_len [7,3] f32", 2, 32, 2, 7, 128, [7, 3]),
+        ("dbrx g 6 (8,48->8,256,128) f32", 8, 48, 8, 256, 128, None),
+        ("f32 q, bf16 cache: g 16 S=4096 (glm4, 8,32->2,4096,128)", 8, 32, 2, 4096, 128, None),
+        ("f32 q, bf16 cache: g 16 S=32768 (glm4, 8,32->2,32768,128)", 8, 32, 2, 32768, 128, None),
+        ("g 16 bf16 S=4096 (glm4, 8,32->2,4096,128)", 8, 32, 2, 4096, 128, None),
         ("g 16 decode ≡ forward (2,32->2,8,128) valid_len [1,8] f32", 2, 32, 2, 8, 128, [1, 8]),
         ("g 16 timed step B 1 (1,32->2,256,128) valid_len [256] f32", 1, 32, 2, 256, 128, [256]),
         ("f32 q, bf16 cache: glm4 ragged S=300 valid_len [300,0,1,299,33,64,150,0]", 8, 32, 2, 300, 128,
@@ -672,8 +697,10 @@ def phase_kernels_vs_plain() -> dict[str, float]:
         out = dec.decode_attention_cuda(q, kc, vc, vl, softcap=cap)
         want = ref.decode_attention_ref(q, kc, vc, vl, softcap=cap)
         torch.cuda.synchronize()
-        err, ok = _attention_ok(out, want, cdt == bf16)
-        tol = BF16_TOL if cdt == bf16 else F32_TOL
+        # Under float32 queries both sides compute in float32 on the same
+        # cache values: F32_TOL whatever the cache's type.
+        err, ok = _attention_ok(out, want)
+        tol = BF16_TOL if dt == bf16 else F32_TOL
         ok = ok and out.dtype == dt and bool((out[vl == 0] == 0).all())
         log(f"kernel vs plain: decode_attention {name}: max_abs_err {err:.3e} (tol {tol}) {'ok' if ok else 'FAIL'}")
         if not ok:
@@ -695,6 +722,12 @@ def phase_kernels_vs_plain() -> dict[str, float]:
                 main_err[f"{model}_decode_attention"] = err
         if name.startswith("xlstm hd 512"):
             main_err["xlstm_decode_attention"] = err
+        for key, prefix in (("glm4_4096", "f32 q, bf16 cache: g 16 S=4096"),
+                            ("glm4_32768", "f32 q, bf16 cache: g 16 S=32768"),
+                            ("granite", "granite MQA g 48 S=4096"), ("dbrx", "dbrx g 6")):
+            if name.startswith(prefix):
+                main_err[f"{key}_decode_attention"] = err
+    failures += _decode_bit_identity(gen)
 
     rms_cases = [
         ("main path (2048,7168) f32", 2048, 7168, f32),
@@ -952,11 +985,13 @@ def phase_backward_vs_plain() -> dict[str, float]:
 
 def _bit_identity(gen) -> list[str]:
     """Each redesigned backward called twice on the same inputs: flash at
-    GLM-4-9B's (2,32->2,1024,128) f32 (split partials) and RMSNorm at
-    (2048,4096) f32; the gradients must be equal bit for bit (no atomics)."""
+    GLM-4-9B's (2,32->2,1024,128) f32 (split partials), RMSNorm at
+    (2048,4096) f32 and the gates at Arctic's (2048,128) k 2; the gradients
+    must be equal bit for bit (no atomics)."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gating as gating
     from repro_torch.kernels import rmsnorm as rms
 
     q, dout = (_randn(gen, (2, 32, 1024, 128), torch.float32) for _ in range(2))
@@ -964,10 +999,14 @@ def _bit_identity(gen) -> list[str]:
     out, lse = fa.flash_attention_cuda(q, k, v, return_lse=True)
     x, dy = (_randn(gen, (2048, 4096), torch.float32) for _ in range(2))
     scale = _randn(gen, (4096,), torch.float32)
+    logits = _randn(gen, (2048, 128), torch.float32) * 2
+    _, ids = gating.moe_gating_cuda(logits, 2)
+    dg = _randn(gen, (2048, 2), torch.float32)
     calls = {
         "flash_attention_bwd (2,32->2,1024,128) f32": lambda: fa.flash_attention_backward_cuda(q, k, v, out,
                                                                                                dout, lse),
         "rmsnorm_bwd (2048,4096) f32": lambda: rms.rmsnorm_backward_cuda(x, scale, dy, eps=1e-5),
+        "moe_gating_bwd (2048,128) k 2 f32": lambda: (gating.moe_gating_backward_cuda(logits, ids, dg),),
     }
     failures = []
     for name, call in calls.items():
@@ -977,6 +1016,43 @@ def _bit_identity(gen) -> list[str]:
         log(f"backward vs plain: {name}: two calls bit-identical {same} {'ok' if same else 'FAIL'}")
         if not same:
             failures.append(f"{name} bit identity")
+    return failures
+
+
+def _decode_bit_identity(gen) -> list[str]:
+    """The decode kernel on each route called twice on the same inputs and
+    once as a CUDA graph's replay: GLM-4-9B's g 16 over a bf16 cache at
+    4,096 slots and Granite's g 48 in float32 (tensor cores), xLSTM's head
+    size 512 (wide route), orloj_gpt's step (SIMT); the three outputs must
+    be equal bit for bit (no atomics, merges in a fixed order)."""
+    import torch
+
+    from repro_torch.kernels import decode_attention as dec
+
+    failures = []
+    for name, b, h, kv, s, hd, cdt in (("glm4 f32 q, bf16 cache (8,32->2,4096,128)", 8, 32, 2, 4096, 128, torch.bfloat16),
+                                       ("granite f32 (4,48->1,4096,128)", 4, 48, 1, 4096, 128, torch.float32),
+                                       ("xlstm hd 512 f32 (8,4->4,256,512)", 8, 4, 4, 256, 512, torch.float32),
+                                       ("main path f32 (8,12,256,64)", 8, 12, 12, 256, 64, torch.float32)):
+        q = _randn(gen, (b, h, hd), torch.float32)
+        kc, vc = (_randn(gen, (b, kv, s, hd), cdt) for _ in range(2))
+        vl = torch.randint(0, s + 1, (b,), generator=gen, device="cuda", dtype=torch.int32)
+        first, second = (dec.decode_attention_cuda(q, kc, vc, vl) for _ in range(2))
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            dec.decode_attention_cuda(q, kc, vc, vl)
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            replayed = dec.decode_attention_cuda(q, kc, vc, vl)
+        graph.replay()
+        torch.cuda.synchronize()
+        same = torch.equal(first, second) and torch.equal(first, replayed)
+        log(f"kernel vs plain: decode_attention {name}: two calls and a graph replay bit-identical {same} "
+            f"{'ok' if same else 'FAIL'}")
+        if not same:
+            failures.append(f"decode_attention {name} bit identity")
     return failures
 
 
@@ -1090,7 +1166,7 @@ def _kernel_log():
                 err = (out.float() - want.float()).abs().max().item()
                 ok = bool(torch.isclose(out.float(), want.float(), rtol=ROW_TOL, atol=ROW_TOL).all())
             else:
-                err, ok = _attention_ok(out, want, "bfloat16" in dtypes)
+                err, ok = _attention_ok(out, want)
                 if "bfloat16" in dtypes:  # both against the plain version in float32 on the same values
                     exact = _plain(name, [a.float() if isinstance(a, torch.Tensor) and a.is_floating_point()
                                           else a for a in args], dict(kw))
@@ -1225,7 +1301,7 @@ def _hold_decode_steps(dec, calls: list) -> None:
     def held() -> float:
         ms = once()
         want = ref.decode_attention_ref(dec._q, dec._kc, dec._vc, dec._valid)
-        err, ok = _attention_ok(dec.last_out, want, False)
+        err, ok = _attention_ok(dec.last_out, want)
         shape = ",".join(str(tuple(t.shape)) for t in (dec._q, dec._kc, dec._vc))
         calls.append(("decode_attention", shape, "float32", err, ok, None))
         return ms
@@ -1428,14 +1504,20 @@ def _nbytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in _leaves(tree))
 
 
+# The timed decode steps: (rows, cache slots, cache type).  At B 1 and 8
+# over a full float32 cache of 256 slots, and at B 8 over the models'
+# default bf16 cache at decode_32k's 32,768 slots.
+DECODE_STEPS = ((1, 256, "float32"), (8, 256, "float32"), (8, 32768, "bfloat16"))
+
+
 def phase_decode_step_time(model, params, label: str) -> None:
-    """The decode step at B 1 and 8 with a full 256-slot float32 cache: its
-    time as a caller sees it (host clock to a synchronise) and the host's
-    share of it (the enqueue), the same step replayed as a CUDA graph (the
-    device's time alone), its launches and a profile, beside two bounds:
-    every parameter byte read once at the HBM rate, and the bytes a step
-    must move (every weight but the embedding table, of which it gathers B
-    rows; the cache; the logits written)."""
+    """The decode step at each of DECODE_STEPS with every cache slot valid:
+    its time as a caller sees it (host clock to a synchronise) and the
+    host's share of it (the enqueue), the same step replayed as a CUDA graph
+    (the device's time alone), its launches and a profile, beside two
+    bounds: every parameter byte read once at the HBM rate, and the bytes a
+    step must move (every weight but the embedding table, of which it
+    gathers B rows; the cache; the logits written)."""
     import torch
 
     from repro_torch.kernels import ops
@@ -1444,8 +1526,8 @@ def phase_decode_step_time(model, params, label: str) -> None:
     param_bytes = _nbytes(params)
     weight_ms = param_bytes / HBM_BYTES_PER_S * 1e3
     table = params["embed"]["table"]
-    for b in (1, 8):
-        cache = model.init_cache(b, 256, dtype=torch.float32)
+    for b, slots, dtype_name in DECODE_STEPS:
+        cache = model.init_cache(b, slots, dtype=getattr(torch, dtype_name))
         tokens = torch.ones((b, 1), dtype=torch.long, device=model.device)
         step_bytes = (param_bytes - (0 if cfg.tie_embeddings else _nbytes(table))
                       + b * cfg.d_model * 4 + _nbytes(cache) + b * cfg.vocab_size * 4)
@@ -1453,7 +1535,7 @@ def phase_decode_step_time(model, params, label: str) -> None:
 
         def step():
             with torch.no_grad():
-                model.decode_step(params, tokens, cache, 255)  # every slot valid
+                model.decode_step(params, tokens, cache, slots - 1)  # every slot valid
 
         for _ in range(3):
             step()
@@ -1474,15 +1556,16 @@ def phase_decode_step_time(model, params, label: str) -> None:
         step()
         torch.cuda.synchronize()
         counts = ops.launch_counts()
-        log(f"{label} decode step B {b}, cache 256 float32: median {med:.4f} ms (min {times[0]:.4f}, "
+        log(f"{label} decode step B {b}, cache {slots} {dtype_name}: median {med:.4f} ms (min {times[0]:.4f}, "
             f"max {times[-1]:.4f}, 15 steps), of which the host's enqueue median "
             f"{enqueue[len(enqueue) // 2]:.4f} ms; as a CUDA graph {device_ms:.4f} ms; weight-read bound "
             f"{weight_ms:.4f} ms ({param_bytes} parameter bytes / 3.35 TB/s), ratio {med / weight_ms:.3f} "
             f"(graph {device_ms / weight_ms:.3f}); step byte bound {step_ms_bound:.4f} ms ({step_bytes} "
             f"bytes), ratio {med / step_ms_bound:.3f} (graph {device_ms / step_ms_bound:.3f}); "
             f"launches per step {counts}")
-        _profile(step, label, f"decode step ({b} rows, cache 256)")
+        _profile(step, label, f"decode step ({b} rows, cache {slots} {dtype_name})")
         del cache
+        _release()
 
 
 def phase_step_card_vs_cpu(cfg, label: str) -> None:
@@ -1594,16 +1677,20 @@ def _decode_entry(gen, b, h, kv, s, hd, q_dtype, cache_dtype) -> dict:
     kr, vr = (t.to(q_dtype).repeat_interleave(h // kv, dim=1) for t in (k, v))
     vl = torch.full((b,), s, dtype=torch.int32, device="cuda")
     mask = (torch.arange(s, device="cuda")[None] < vl[:, None])[:, None, None, :]  # the valid slots
-    bound, by = decode_bound(q, k, vl)
+    plan = dec.decode_plan(b, h, kv, s, hd, q_dtype, cache_dtype, torch.cuda.get_device_properties(0).multi_processor_count)
+    bound, by = decode_bound(q, k, vl, plan.route)
     e = {
         "ms": time_ms(lambda: dec.decode_attention_cuda(q, k, v, vl)),
         "plain_ms": time_ms(lambda: ref.decode_attention_ref(q, k, v, vl)),
         "bound_ms": bound, "bound_by": by,
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q[:, :, None], kr, vr, attn_mask=mask)),
+        "plan": {"route": plan.route, "warps": plan.warps, "stages": plan.stages, "cluster": plan.cluster,
+                 "shared_bytes": plan.shared_bytes},
     }
     log(f"decode ({b},{h}->{kv},{s},{hd}) q {str(q_dtype)[6:]}, cache {str(cache_dtype)[6:]}, ratios in "
         f"this call: /SDPA {e['ms'] / e['library_ms']:.3f}, /plain {e['ms'] / e['plain_ms']:.3f}, "
-        f"/bound {e['ms'] / bound:.3f} (bound {bound:.6f} ms, {by}); {e['ms']:.6f} ms")
+        f"/bound {e['ms'] / bound:.3f} (bound {bound:.6f} ms, {by}); {e['ms']:.6f} ms, plain "
+        f"{e['plain_ms']:.6f}, SDPA {e['library_ms']:.6f}; plan {e['plan']}")
     return e
 
 
@@ -1742,8 +1829,11 @@ def phase_kernel_line(counts: dict[str, int], errs: dict[str, float]) -> dict:
     (8,12,256,64) as before, under ``arctic`` at Arctic's (8,56->8,256,128),
     under ``glm4`` at GLM-4's (8,32->2,256,128), under ``toy`` at the
     engine-smoke toy's largest batch (4,4,32,16) and under ``nemotron`` at
-    Nemotron-4-340B's (8,96->8,256,192); RMSNorm at Arctic's (2048, 7168) and the gating at
-    its (2048, 128) with k 2, and also at T = 8, 32 and 256 (``by_T``)."""
+    Nemotron-4-340B's (8,96->8,256,192); decode also at the zoo's shapes,
+    GLM-4's over its bf16 cache at 4,096 and 32,768 slots, Granite-34B's
+    (4,48->1,4096,128) and DBRX's (8,48->8,256,128); RMSNorm at Arctic's
+    (2048, 7168) and the gating at its (2048, 128) with k 2, and also at T
+    = 8, 32 and 256 (``by_T``)."""
     import torch
     import torch.nn.functional as F
 
@@ -1793,6 +1883,14 @@ def phase_kernel_line(counts: dict[str, int], errs: dict[str, float]) -> dict:
                      **_decode_entry(gen, 8, 32, 32, 256, 64, torch.bfloat16, torch.bfloat16)},
         "xlstm": {"max_abs_err": errs["xlstm_decode_attention"],
                   **_decode_entry(gen, 8, 4, 4, 256, 512, torch.float32, torch.float32)},
+        "glm4_4096_bf16_cache": {"max_abs_err": errs["glm4_4096_decode_attention"],
+                                 **_decode_entry(gen, 8, 32, 2, 4096, 128, torch.float32, torch.bfloat16)},
+        "glm4_32768_bf16_cache": {"max_abs_err": errs["glm4_32768_decode_attention"],
+                                  **_decode_entry(gen, 8, 32, 2, 32768, 128, torch.float32, torch.bfloat16)},
+        "granite": {"max_abs_err": errs["granite_decode_attention"],
+                    **_decode_entry(gen, 4, 48, 1, 4096, 128, torch.float32, torch.float32)},
+        "dbrx": {"max_abs_err": errs["dbrx_decode_attention"],
+                 **_decode_entry(gen, 8, 48, 8, 256, 128, torch.float32, torch.float32)},
     }
     flash["lse"] = _flash_lse_entry(gen)
 

@@ -132,7 +132,7 @@ def build_all(names: tuple[str, ...] = KERNELS) -> dict[str, str]:
 
 @functools.cache
 def sm_count(device: torch.device) -> int:
-    """The multiprocessors of a CUDA device (the backward planners' unit)."""
+    """The multiprocessors of a CUDA device (the launch planners' unit)."""
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 

@@ -59,40 +59,6 @@ constexpr int kWarps = MOE_GATING_WARPS;
 constexpr int kThreads = 32 * kWarps;
 constexpr unsigned kFull = 0xffffffffu;
 
-// An int32 that orders floats as their values do (-inf < -1 < -0 < +0 <
-// the smallest subnormal < 1 < +inf), and its inverse.  A non-negative
-// float's bits already order as signed ints; a negative one's magnitude
-// bits are flipped so that a larger magnitude gives a smaller key.
-__device__ __forceinline__ int order_key(float f) {
-  const int b = __float_as_int(f);
-  return b ^ ((b >> 31) & 0x7fffffff);
-}
-__device__ __forceinline__ float key_value(int key) {
-  return __int_as_float(key ^ ((key >> 31) & 0x7fffffff));
-}
-
-// VEC adjacent logits from `src` (aligned to VEC elements) into `dst`.
-template <int VEC>
-__device__ __forceinline__ void load_vec(const float* src, float* dst) {
-  if constexpr (VEC == 4) {
-    const float4 v = *reinterpret_cast<const float4*>(src);
-    dst[0] = v.x, dst[1] = v.y, dst[2] = v.z, dst[3] = v.w;
-  } else {
-    dst[0] = *src;
-  }
-}
-template <int VEC>
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* src, float* dst) {
-  if constexpr (VEC == 4) {
-    const uint2 v = *reinterpret_cast<const uint2*>(src);
-    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
-    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
-    dst[0] = a.x, dst[1] = a.y, dst[2] = b.x, dst[3] = b.y;
-  } else {
-    dst[0] = to_float(*src);
-  }
-}
-
 // VEC: adjacent logits a lane loads at once (4 or 1); CHUNKS: loads a lane
 // makes.  Slot j of lane l holds expert 32·VEC·(j / VEC) + VEC·l + j % VEC,
 // so a lane's slots run in increasing expert order.  E <= 32·VEC·CHUNKS.
@@ -117,7 +83,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int v = 0; v < VEC; ++v) expert[VEC * c + v] = e0 + v;
     // E % VEC == 0, so a chunk lies wholly inside the row or wholly past it.
     if (e0 < E) {
-      load_vec<VEC>(xr + e0, p + VEC * c);
+      load_chunk<VEC>(xr + e0, p + VEC * c);
     } else {
 #pragma unroll
       for (int v = 0; v < VEC; ++v) p[VEC * c + v] = -INFINITY;

@@ -13,6 +13,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs import ARCHS, get_config  # noqa: E402
 from repro_torch.kernels import decode_attention as dec_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels import moe_gating as gating_mod  # noqa: E402
@@ -137,8 +138,8 @@ def test_decode_kernel_matches_plain(cuda_device, b, h, kv, s, hd, valid, dtype)
 )
 def test_decode_kernel_groups_cache_types_and_softcap(cuda_device, b, h, kv, s, hd, valid,
                                                        cache_dtype, softcap):
-    """Groups of 16 and 48 query heads (several passes of the 8-head
-    instantiation), float32 queries over a bfloat16 cache (read as stored,
+    """Groups of 16 and 48 query heads (the tensor-core route: one and
+    three M tiles), float32 queries over a bfloat16 cache (read as stored,
     computed in float32), and the softcap instantiations."""
     g = torch.Generator(device=cuda_device).manual_seed(6)
     q = _randn(g, (b, h, hd), cuda_device)
@@ -154,8 +155,8 @@ def test_decode_kernel_groups_cache_types_and_softcap(cuda_device, b, h, kv, s, 
     assert dec_mod.launches == before + 1
     assert out.dtype == torch.float32 and torch.isfinite(out).all()
     want = ref.decode_attention_ref(q, kc, vc, vl, softcap=softcap)
-    tol = 2e-2 if cache_dtype == torch.bfloat16 else 1e-4
-    torch.testing.assert_close(out, want, rtol=tol, atol=tol)
+    # Float32 queries: both sides compute in float32 on the same cache values.
+    torch.testing.assert_close(out, want, rtol=1e-4, atol=1e-4)
     assert (out[vl == 0] == 0).all()
 
 
@@ -416,7 +417,7 @@ def test_decode_kernel_head_dims_16_and_192(cuda_device, b, h, kv, s, hd, valid,
     assert dec_mod.launches == before + 1
     assert out.dtype == q_dtype and torch.isfinite(out).all()
     want = ref.decode_attention_ref(q, kc, vc, vl, softcap=softcap)
-    tol = 2e-2 if cache_dtype == torch.bfloat16 else 1e-4
+    tol = 2e-2 if q_dtype == BF16 else 1e-4  # float32 queries compute in float32 over either cache
     torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
     assert (out[vl == 0] == 0).all()
 
@@ -536,8 +537,9 @@ def test_xlstm_token_path_runs_at_head_size_512(cuda_device):
 @pytest.mark.parametrize("b,h,kv,s,valid", [(8, 4, 4, 256, None), (2, 4, 4, 1000, [1000, 3]),
                                             (3, 1, 1, 40, [40, 0, 17])])
 def test_decode_kernel_head_size_512(cuda_device, b, h, kv, s, valid):
-    """Head size 512 at a group of 1 in float32: one 132 KB tile slot a
-    block, the cache split along S over a cluster; empty rows give 0."""
+    """Head size 512 at a group of 1 in float32 (the wide route: several
+    warps a block, each with its own ring of 2-key stages, the cache split
+    along S over a cluster); empty rows give 0."""
     g = torch.Generator(device=cuda_device).manual_seed(14)
     q = _randn(g, (b, h, 512), cuda_device)
     kc, vc = (_randn(g, (b, kv, s, 512), cuda_device) for _ in range(2))
@@ -550,6 +552,68 @@ def test_decode_kernel_head_size_512(cuda_device, b, h, kv, s, valid):
     for bad in (_randn(g, (b, 2 * kv, 512), cuda_device), q.bfloat16()):  # a group of 2; bf16
         with pytest.raises((ValueError, TypeError), match="head_dim 512 is taken only|types must"):
             ops.decode_attention(bad, kc, vc, vl)
+
+
+# Every (query heads, KV heads, head size) of the archs' decode steps, with
+# each (query, cache) type pair and softcap the kernel takes at it: head
+# size 512 only float32 / float32 without softcap.
+ARCH_DECODE_CASES = [
+    (h, kv, hd, qt, ct, cap)
+    for h, kv, hd in sorted({(c.n_heads, c.n_kv_heads, c.resolved_head_dim)
+                             for c in map(get_config, ARCHS) if c.resolved_head_dim in dec_mod.HEAD_DIMS})
+    for qt, ct in dec_mod.PAIRS
+    for cap in (0.0, 2.0)
+    if hd != dec_mod.WIDE_HEAD_DIM or (qt, ct, cap) == (F32, F32, 0.0)
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,kv,hd,q_dtype,cache_dtype,softcap", ARCH_DECODE_CASES)
+def test_decode_kernel_at_every_arch_group(cuda_device, h, kv, hd, q_dtype, cache_dtype, softcap):
+    """The groups of ``ARCHS`` (1, 5, 6, 7, 12, 16, 48) and head size 512,
+    each on its route, over a ragged cache of 300 slots with an empty row."""
+    g = torch.Generator(device=cuda_device).manual_seed(23)
+    b, s = 3, 300
+    q = _randn(g, (b, h, hd), cuda_device, q_dtype)
+    kc, vc = (_randn(g, (b, kv, s, hd), cuda_device, cache_dtype) for _ in range(2))
+    vl = torch.tensor([300, 0, 97], dtype=torch.int32, device=cuda_device)
+    before = dec_mod.launches
+    out = ops.decode_attention(q, kc, vc, vl, softcap=softcap)
+    torch.cuda.synchronize()
+    assert dec_mod.launches == before + 1
+    assert out.dtype == q_dtype and torch.isfinite(out).all() and (out[1] == 0).all()
+    want = ref.decode_attention_ref(q, kc, vc, vl, softcap=softcap)
+    tol = 2e-2 if q_dtype == BF16 else 1e-4  # float32 queries compute in float32 over either cache
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,kv,s,hd,cache_dtype", [
+    (8, 32, 2, 4096, 128, BF16),  # GLM-4-9B's g 16 over its bf16 cache: tensor cores, a 4-stage ring
+    (4, 48, 1, 4096, 128, F32),  # Granite's g 48: three M tiles
+    (8, 4, 4, 256, 512, F32),  # xLSTM's head size 512: the wide route
+    (8, 12, 12, 256, 64, F32),  # orloj_gpt's step: the SIMT route
+])
+def test_decode_kernel_gives_the_same_bits_on_two_calls_and_in_a_graph(cuda_device, b, h, kv, s, hd,
+                                                                         cache_dtype):
+    """No atomics and merges in a fixed order: two calls give the same bits,
+    and a CUDA graph's replay of the call gives the eager call's."""
+    g = torch.Generator(device=cuda_device).manual_seed(24)
+    q = _randn(g, (b, h, hd), cuda_device)
+    kc, vc = (_randn(g, (b, kv, s, hd), cuda_device, cache_dtype) for _ in range(2))
+    vl = torch.randint(0, s + 1, (b,), generator=g, device=cuda_device, dtype=torch.int32)
+    first, second = (dec_mod.decode_attention_cuda(q, kc, vc, vl) for _ in range(2))
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        dec_mod.decode_attention_cuda(q, kc, vc, vl)  # warm-up on the capture's stream
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = dec_mod.decode_attention_cuda(q, kc, vc, vl)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second) and torch.equal(first, replayed)
 
 
 # ------------------------------------------------------------- backwards
@@ -716,6 +780,44 @@ def test_moe_gating_backward_kernel_matches_autograd_through_plain(cuda_device, 
     assert torch.equal(ids, wi)
     assert got.dtype == dtype and torch.isfinite(got).all()
     _grad_close(got, want, 2e-2 if dtype == torch.bfloat16 else 1e-5)
+
+
+@pytest.mark.cuda
+def test_moe_gating_backward_gives_the_same_bits_on_two_calls_and_in_a_graph(cuda_device):
+    """Arctic's (2048, 128) k 2: shuffle sums in a fixed order, no atomics."""
+    g = torch.Generator(device=cuda_device).manual_seed(25)
+    logits = _randn(g, (2048, 128), cuda_device) * 2
+    _, ids = gating_mod.moe_gating_cuda(logits, 2)
+    dgates = _randn(g, (2048, 2), cuda_device)
+    first, second = (gating_mod.moe_gating_backward_cuda(logits, ids, dgates) for _ in range(2))
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        gating_mod.moe_gating_backward_cuda(logits, ids, dgates)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = gating_mod.moe_gating_backward_cuda(logits, ids, dgates)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second) and torch.equal(first, replayed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_moe_gating_backward_kernel_takes_rows_off_16_bytes(cuda_device, dtype):
+    """Logits that start off a 16-byte boundary take the scalar layout; the
+    gradient still holds autograd's through the plain version."""
+    g = torch.Generator(device=cuda_device).manual_seed(26)
+    t, e, k = 64, 128, 2
+    logits = (_randn(g, (t * e + 1,), cuda_device) * 2).to(dtype)[1:].view(t, e)
+    assert logits.data_ptr() % 16 != 0
+    _, ids = gating_mod.moe_gating_cuda(logits, k)
+    dgates = _randn(g, (t, k), cuda_device)
+    got = gating_mod.moe_gating_backward_cuda(logits, ids, dgates)
+    (_, wi), (want,) = _grads(lambda x: ref.moe_gating_ref(x, k), (logits,), (dgates, None))
+    assert torch.equal(ids, wi)
+    _grad_close(got, want, 2e-2 if dtype == BF16 else 1e-5)
 
 
 @pytest.mark.cuda

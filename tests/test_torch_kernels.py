@@ -20,6 +20,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
+from _tf32 import tf32 as _tf32  # noqa: E402
+from _tf32 import tf32_matmul as _tf32_matmul  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
@@ -136,27 +138,9 @@ def test_flash_plain_fully_masked_rows_are_zero():
 
 # ------------------------------------ the flash kernel's split-TF32 products
 # The CUDA flash kernel computes float32 products on the tensor cores in
-# TF32 (10 mantissa bits).  Each operand x is split into big = tf32(x) and
-# small = tf32(x - big), and each product is big·big + big·small +
-# small·big.  These tests emulate that arithmetic on the CPU and record why
-# three passes are needed: one misses the float32 tolerance of 2e-5.
-def _tf32(x: torch.Tensor) -> torch.Tensor:
-    """Round float32 to TF32 as ``cvt.rna.tf32.f32`` does: to nearest, ties
-    away from zero, keeping 10 mantissa bits (integer ops on the bits)."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def _tf32_matmul(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
-    """a @ b with TF32 operands and float32 sums: one pass (big·big) or the
-    kernel's three (small·big + big·small + big·big)."""
-    a_big, b_big = _tf32(a), _tf32(b)
-    if passes == 1:
-        return a_big @ b_big
-    a_small, b_small = _tf32(a - a_big), _tf32(b - b_big)
-    return a_small @ b_big + a_big @ b_small + a_big @ b_big
-
-
+# TF32 (10 mantissa bits), three passes a product (``_tf32``).  These tests
+# emulate that arithmetic on the CPU and record why three passes are
+# needed: one misses the float32 tolerance of 2e-5.
 def _tf32_flash(q, k, v, passes: int) -> torch.Tensor:
     """Causal GQA attention with the kernel's arithmetic: TF32 products,
     the scale after Q·Kᵀ, unnormalised probabilities into P·V, one division
@@ -204,9 +188,14 @@ def test_one_tf32_pass_misses_the_float32_tolerance(b, h, kv, s, hd):
 
 # ------------------------------------------------------- decode attention
 @pytest.mark.parametrize("b,h,kv,s,hd", [(2, 8, 2, 512, 64), (1, 4, 4, 256, 128), (4, 8, 1, 1024, 64),
-                                        (4, 4, 4, 32, 16), (2, 24, 2, 256, 192)])
+                                        (4, 4, 4, 32, 16), (2, 24, 2, 256, 192),
+                                        (2, 32, 2, 256, 128),  # GLM-4-9B's group of 16
+                                        (2, 48, 1, 256, 128),  # Granite-34B's MQA group of 48
+                                        (2, 4, 4, 256, 512)])  # xLSTM-1.3B's head size 512
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_plain_matches_jax_ref(b, h, kv, s, hd, dtype):
+    """The plain version (chip_smoke's yardstick for the kernel) against the
+    JAX reference and the Pallas kernel in the Pallas interpreter."""
     rng = np.random.default_rng(4)
     jq, tq = _pair(rng.normal(size=(b, h, hd)), dtype)
     jk, tk = _pair(rng.normal(size=(b, kv, s, hd)), dtype)
@@ -216,6 +205,8 @@ def test_decode_plain_matches_jax_ref(b, h, kv, s, hd, dtype):
     want = jref.decode_attention_ref(jq, jk, jv, jnp.asarray(valid))
     assert out.dtype == tq.dtype
     np.testing.assert_allclose(_np(out), _np(want), **_tol(dtype))
+    pallas = jops.decode_attention(jq, jk, jv, jnp.asarray(valid), use_pallas=True)
+    np.testing.assert_allclose(_np(out), _np(pallas), **_tol(dtype))
 
 
 @pytest.mark.parametrize("s,block_k", [(300, 256), (96, 64), (7, 256), (130, 128)])
