@@ -38,9 +38,17 @@ Phases, each reported on its own lines; any failure exits non-zero:
    size 512 (xLSTM-1.3B's token path: a group of 1 in float32); decode at
    Granite-34B's g 48 over 4,096 slots (float32, and a bf16 cache with
    ragged valid_len), GLM-4-9B's g 16 at S 7 and over its bf16 cache at
-   4,096 and 32,768 slots, DBRX's g 6; then the decode kernel on each
+   4,096 and 32,768 slots, DBRX's g 6; the flash forward's wgmma route
+   at every head size in both types, at one and two consumer warpgroups,
+   at groups of 4 to 48 with lengths, windows and S = 1 (DBRX's g 6 and
+   Arctic's g 7 at head size 128 in float32), and its mma_sync route
+   (float32 at head size 192), each line with the plan (``flash_attention.flash_plan``); then
+   the flash forward on each route (GLM-4's training shape with its LSE,
+   orloj_gpt's, MusicGen's bf16, Nemotron's, the smallest bucket) called
+   twice, and captured in a CUDA graph replayed over rewritten inputs
+   against an eager call on them, and the decode kernel on each
    route (tensor cores over bf16 and float32 caches, head size 512, SIMT)
-   called twice and replayed in a CUDA graph, all three bit-identical;
+   called twice and replayed in a CUDA graph, all bit-identical;
 3b. backward vs plain: each backward kernel, through the ``ops``
    operators' autograd formulas, against autograd through its plain version on the same
    inputs and output gradients (relative to the largest gradient: flash in
@@ -507,7 +515,7 @@ def ptxas_report(out: str) -> list[tuple[str, str]]:
     for ln in out.splitlines():
         # A type named twice is mangled the second time as a substitution
         # (S_, S0_, ...): bf16 queries over a bf16 cache read "13__nv_bfloat16S2_".
-        m = re.search(r"Function properties for .*?\d([a-z_]+_kernel)(?:I((?:f|13__nv_bfloat16|S\d*_)+)"
+        m = re.search(r"Function properties for .*?\d([a-z_]+_kernel(?:_wgmma)?)(?:I((?:f|13__nv_bfloat16|S\d*_)+)"
                       r"((?:L[a-z]\d+E)*))?", ln)
         if m:
             types: list[str] = []
@@ -595,7 +603,25 @@ def phase_kernels_vs_plain() -> dict[str, float]:
         ("internvl2 (8,14->2,256,64) f32", 8, 14, 2, 256, 64, f32, None, 0, 0.0),
         ("internvl2 prefix + tokens (2,14->2,320,64) f32", 2, 14, 2, 320, 64, f32, None, 0, 0.0),
         ("musicgen (8,32,256,64) bf16", 8, 32, 32, 256, 64, bf16, None, 0, 0.0),
+        # the wgmma route at each head size and type, at one and two
+        # warpgroups, at groups that do not divide a block's rows (6, 48);
+        # the mma_sync route is Nemotron's float32 cases above (head size 192)
+        ("wgmma hd 32 (8,8->8,256,32) f32 lengths", 8, 8, 8, 256, 32, f32,
+         [256, 70, 17, 1, 200, 128, 64, 33], 0, 0.0),
+        ("wgmma hd 32 bf16 (8,8->2,130,32) window 40", 8, 8, 2, 130, 32, bf16, None, 40, 0.0),
+        ("wgmma hd 16 bf16 g 4 (8,16->4,256,16) lengths", 8, 16, 4, 256, 16, bf16,
+         [256, 70, 17, 1, 200, 128, 64, 33], 0, 0.0),
+        ("wgmma hd 64 bf16 g 7 (8,14->2,256,64) lengths window 100", 8, 14, 2, 256, 64, bf16,
+         [256, 70, 17, 1, 200, 128, 64, 33], 100, 0.0),
+        ("wgmma hd 128 bf16 g 16 (8,32->2,256,128) softcap 2", 8, 32, 2, 256, 128, bf16, None, 0, 2.0),
+        ("wgmma hd 192 g 12 (2,24->2,77,192) lengths window 30 bf16", 2, 24, 2, 77, 192, bf16, [77, 40], 30, 0.0),
+        ("wgmma hd 128 g 48 (2,48->1,256,128) bf16 lengths", 2, 48, 1, 256, 128, bf16, [256, 100], 0, 0.0),
+        ("wgmma hd 128 g 48 (2,48->1,256,128) f32 lengths", 2, 48, 1, 256, 128, f32, [256, 100], 0, 0.0),
+        ("dbrx g 6 (8,48->8,256,128) f32", 8, 48, 8, 256, 128, f32, None, 0, 0.0),
+        ("wgmma S=1 g 16 (2,32->2,1,128) bf16", 2, 32, 2, 1, 128, bf16, None, 0, 0.0),
+        ("wgmma smallest bucket (8,12,32,64) bf16", 8, 12, 12, 32, 64, bf16, None, 0, 0.0),
     ]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for name, b, h, kv, s, hd, dt, lens, window, cap in flash_cases:
         q = _randn(gen, (b, h, s, hd), dt)
         k = _randn(gen, (b, kv, s, hd), dt)
@@ -607,7 +633,9 @@ def phase_kernels_vs_plain() -> dict[str, float]:
         err, ok = _attention_ok(out, want)
         tol = BF16_TOL if dt == bf16 else F32_TOL
         ok = ok and out.dtype == dt
-        log(f"kernel vs plain: flash_attention {name}: max_abs_err {err:.3e} (tol {tol}) {'ok' if ok else 'FAIL'}")
+        plan = fa.flash_plan(b, h, kv, s, hd, dt, window, sms)
+        log(f"kernel vs plain: flash_attention {name}: max_abs_err {err:.3e} (tol {tol}) {'ok' if ok else 'FAIL'}; "
+            f"{_plan_text(plan)}")
         if not ok:
             failures.append(f"flash_attention {name}")
         if name.startswith("main path"):
@@ -727,6 +755,7 @@ def phase_kernels_vs_plain() -> dict[str, float]:
                             ("granite", "granite MQA g 48 S=4096"), ("dbrx", "dbrx g 6")):
             if name.startswith(prefix):
                 main_err[f"{key}_decode_attention"] = err
+    failures += _flash_bit_identity(gen)
     failures += _decode_bit_identity(gen)
 
     rms_cases = [
@@ -1016,6 +1045,68 @@ def _bit_identity(gen) -> list[str]:
         log(f"backward vs plain: {name}: two calls bit-identical {same} {'ok' if same else 'FAIL'}")
         if not same:
             failures.append(f"{name} bit identity")
+    return failures
+
+
+def _plan_text(plan) -> str:
+    """A flash plan in one phrase."""
+    unit = ("warpgroup" if plan.route == "wgmma" else "warp") + ("s" if plan.warps > 1 else "")
+    return (f"plan {plan.route}, {plan.warps} {unit}, {plan.heads}x{plan.positions} rows, {plan.block_k}-key "
+            f"tiles, {plan.stages} stages, {plan.shared_bytes} B")
+
+
+def _flash_bit_identity(gen) -> list[str]:
+    """The flash forward on each route called twice on the same inputs, then
+    captured in a CUDA graph, its input buffers rewritten with new values
+    and the graph replayed: the two calls must be equal bit for bit (no
+    atomics), and the replay equal to an eager call on the new values (the
+    tensor maps the capture encoded point at the same buffers)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    failures = []
+    for name, b, h, kv, s, hd, dt, lse in (("glm4 (2,32->2,1024,128) f32 with LSE", 2, 32, 2, 1024, 128,
+                                            torch.float32, True),
+                                           ("main path (8,12,256,64) f32", 8, 12, 12, 256, 64, torch.float32,
+                                            False),
+                                           ("musicgen (8,32,256,64) bf16", 8, 32, 32, 256, 64, torch.bfloat16,
+                                            False),
+                                           ("nemotron (8,96->8,256,192) f32", 8, 96, 8, 256, 192, torch.float32,
+                                            False),
+                                           ("smallest bucket (8,12,32,64) f32", 8, 12, 12, 32, 64, torch.float32,
+                                            False)):
+        q = _randn(gen, (b, h, s, hd), dt)
+        k, v = (_randn(gen, (b, kv, s, hd), dt) for _ in range(2))
+
+        def call():
+            res = fa.flash_attention_cuda(q, k, v, return_lse=lse)
+            return res if lse else (res,)
+
+        first, second = call(), call()
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            call()
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            replayed = call()
+        for t in (q, k, v):
+            t.copy_(_randn(gen, t.shape, dt))
+        graph.replay()
+        eager = call()
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, c) for a, c in zip(first, second))
+        replay_same = all(torch.equal(a, c) for a, c in zip(replayed, eager))
+        ok = same and replay_same
+        plan = fa.flash_plan(b, h, kv, s, hd, dt, 0, sms)
+        log(f"kernel vs plain: flash_attention {name}: two calls bit-identical {same}, a graph replay over "
+            f"rewritten inputs bit-identical to an eager call {replay_same} {'ok' if ok else 'FAIL'}; "
+            f"{_plan_text(plan)}")
+        if not ok:
+            failures.append(f"flash_attention {name} bit identity")
     return failures
 
 
@@ -1645,6 +1736,7 @@ def _flash_entry(gen, b, h, kv, s, hd, dtype, window: int = 0) -> dict:
         i, j = torch.arange(s, device="cuda")[:, None], torch.arange(s, device="cuda")[None, :]
         mask = (j <= i) & (j > i - window)
     tc_bound, tc_by = flash_tc_bound(q, k, None, True, window)
+    plan = fa.flash_plan(b, h, kv, s, hd, dtype, window, torch.cuda.get_device_properties(0).multi_processor_count)
     # The peak rate of the inputs' type: float32 outside the tensor cores, bf16 on them.
     bound, by = (tc_bound, tc_by) if dtype == torch.bfloat16 else flash_bound(q, k, None, True, window)
     e = {
@@ -1654,11 +1746,13 @@ def _flash_entry(gen, b, h, kv, s, hd, dtype, window: int = 0) -> dict:
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q, kr, vr, attn_mask=mask,
                                                                     is_causal=mask is None)),
         "tc_bound_ms": tc_bound, "tc_bound_by": tc_by, "window": window,
+        "plan": {"route": plan.route, "warps": plan.warps, "heads": plan.heads, "positions": plan.positions,
+                 "block_k": plan.block_k, "stages": plan.stages, "shared_bytes": plan.shared_bytes},
     }
     log(f"flash ({b},{h}->{kv},{s},{hd}) {str(dtype)[6:]} window {window}, ratios in this call: "
         f"/SDPA {e['ms'] / e['library_ms']:.3f}, /plain {e['ms'] / e['plain_ms']:.3f}, "
         f"/tc_bound {e['ms'] / tc_bound:.3f} (tc_bound {tc_bound:.6f} ms, {tc_by}), "
-        f"/bound {e['ms'] / bound:.3f} (bound {bound:.6f} ms, {by}); {e['ms']:.6f} ms")
+        f"/bound {e['ms'] / bound:.3f} (bound {bound:.6f} ms, {by}); {e['ms']:.6f} ms; {_plan_text(plan)}")
     return e
 
 
@@ -3056,8 +3150,11 @@ def run_op_dispatch() -> None:
     qd, vl = q[:, :, 0].contiguous(), torch.full((1,), 32, dtype=torch.int32, device="cuda")
     x, w = torch.randn((8, 768), generator=g, device="cuda"), torch.ones(768, device="cuda")
     logits = torch.randn((16, 128), generator=g, device="cuda")
+    qw, kw = (torch.randn((1, 2, 64, 64), generator=g, device="cuda") for _ in range(2))
     pairs = {
         "flash_attention": (lambda: ops.flash_attention(q, k, k), lambda: fa_mod.flash_attention_cuda(q, k, k)),
+        "flash_attention (1,2,64,64), wgmma route": (lambda: ops.flash_attention(qw, kw, kw),
+                                                     lambda: fa_mod.flash_attention_cuda(qw, kw, kw)),
         "decode_attention": (lambda: ops.decode_attention(qd, k, k, vl),
                              lambda: dec_mod.decode_attention_cuda(qd, k, k, vl)),
         "rmsnorm": (lambda: ops.rmsnorm(x, w), lambda: rms_mod.rmsnorm_cuda(x, w)),

@@ -7,10 +7,11 @@ Builds each kernel library NAME (``_build.KERNELS``, e.g.
 ``flash_attention_bwd``) if it is not built, disassembles it with
 ``cuobjdump -sass`` and prints, for every kernel function in it, the number
 of instructions and of the classes that tell how it computes: tensor-core
-products (``HMMA``, with their shapes and types), shared-memory loads
-(``LDS``, and ``LDSM``: ldmatrix), global loads and stores, asynchronous
-copies (``LDGSTS``), float32 fused multiply-adds (``FFMA``) and barriers
-(``BAR``).  Needs the CUDA toolkit (``cuobjdump``), not a card.
+products (``HGMMA``: Hopper's wgmma, and ``HMMA``: mma.sync, with their
+shapes and types), TMA tile loads (``UTMALDG``) and mbarrier operations
+(``SYNCS``), shared-memory loads and stores (``LDS``, ``LDSM``: ldmatrix,
+``STS``), global loads and stores, asynchronous copies (``LDGSTS``),
+float32 fused multiply-adds (``FFMA``) and barriers (``BAR``).  Needs the CUDA toolkit (``cuobjdump``), not a card.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
-CLASSES = ("HMMA", "LDSM", "LDS", "LDGSTS", "LDG", "STG", "FFMA", "BAR")
+CLASSES = ("HGMMA", "HMMA", "UTMALDG", "SYNCS", "LDSM", "LDS", "STS", "LDGSTS", "LDG", "STG", "FFMA", "BAR")
 
 
 def cuobjdump() -> str:
@@ -71,7 +72,7 @@ def main() -> int:
             short = pretty[fn].replace("repro_torch::(anonymous namespace)::", "").removeprefix("void ")
             short = short.split("(", 1)[0]
             by_class = {c: sum(n for op, n in ops.items() if op.split(".")[0] == c) for c in CLASSES}
-            hmma = ", ".join(f"{op} {n}" for op, n in sorted(ops.items()) if op.startswith("HMMA"))
+            hmma = ", ".join(f"{op} {n}" for op, n in sorted(ops.items()) if op.startswith(("HMMA", "HGMMA")))
             print(f"sass: {name}: {short}: {sum(ops.values())} instructions; "
                   + ", ".join(f"{c} {n}" for c, n in by_class.items()) + (f" ({hmma})" if hmma else ""))
     return 0

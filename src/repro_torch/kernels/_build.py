@@ -40,7 +40,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 KERNELS = ("flash_attention", "decode_attention", "rmsnorm", "moe_gating",
            "flash_attention_bwd", "rmsnorm_bwd", "moe_gating_bwd")
 # --split-compile=0 runs the device optimisations of one source on every
-# core: the attention sources instantiate 40 and 121 kernels (head sizes
+# core: the attention sources instantiate 22 and 121 kernels (head sizes
 # 16 to 512, both softcap flags), and split they build in about half the time.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -9,6 +9,8 @@ gates (one sum per row in another order), bfloat16 2e-2 (one bf16 rounding
 of the probabilities or the output); the gating's expert ids must be equal.
 """
 
+import itertools
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -614,6 +616,123 @@ def test_decode_kernel_gives_the_same_bits_on_two_calls_and_in_a_graph(cuda_devi
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(first, second) and torch.equal(first, replayed)
+
+
+# ------------------------------------------------ the flash forward's routes
+def _flash_route_cases():
+    """Every route of the forward's plan at every head size and type: the
+    wgmma route at one and two consumer warpgroups where they fit, and
+    the mma_sync route at 2 and 4 warps where the plan takes it, which is
+    where each route is built (a pure function of the shapes: no card is
+    asked)."""
+    cases = []
+    for dtype, hd in itertools.product((F32, BF16), fa_mod.HEAD_DIMS):
+        if fa_mod.mma_sync_faster(hd, dtype):
+            cases += [("mma_sync", warps, dtype, hd) for warps in (2, 4)]
+            continue
+        for wgs in (1, 2):
+            if fa_mod.wgmma_plan(2, 16, 2, 150, hd, dtype, 132, warpgroups=wgs) is not None:
+                cases.append(("wgmma", wgs, dtype, hd))
+    return cases
+
+
+def _route_plan(route, warps, dtype, hd, b, h, kv, s):
+    if route == "wgmma":
+        return fa_mod.wgmma_plan(b, h, kv, s, hd, dtype, 132, warpgroups=warps)
+    return fa_mod.mma_sync_plan(h, kv, 32 if warps == 2 else 256, hd)
+
+
+def _lse_ref(q, k, lengths, causal, window):
+    """Each row's log-sum-exp of its scaled, masked scores in float64; -inf
+    where no key is valid."""
+    b, h, s, hd = q.shape
+    kr = k.double().repeat_interleave(h // k.shape[1], dim=1)
+    scores = torch.einsum("bhsd,bhtd->bhst", q.double(), kr) / hd**0.5
+    i, j = torch.arange(s, device=q.device)[:, None], torch.arange(s, device=q.device)[None, :]
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= j <= i
+    if window > 0:
+        mask &= j > i - window
+    mask = mask[None, None] & (j < lengths[:, None, None, None].to(q.device))
+    return torch.logsumexp(torch.where(mask, scores, -torch.inf), dim=-1).float()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route,warps,dtype,hd", _flash_route_cases())
+def test_flash_kernel_each_route_matches_plain(cuda_device, monkeypatch, route, warps, dtype, hd):
+    """Each route the plan can take, forced, at a group of 8 with S off every
+    tile, lengths (one row short), a window and causal masks: the output
+    against the plain version and the LSE against float64 sums."""
+    b, h, kv, s, window = 2, 16, 2, 150, 40
+    plan = _route_plan(route, warps, dtype, hd, b, h, kv, s)
+    monkeypatch.setattr(fa_mod, "flash_plan", lambda *args: plan)
+    g = torch.Generator(device=cuda_device).manual_seed(31)
+    q = _randn(g, (b, h, s, hd), cuda_device, dtype)
+    k, v = (_randn(g, (b, kv, s, hd), cuda_device, dtype) for _ in range(2))
+    lens = torch.tensor([s, 37], dtype=torch.int32, device=cuda_device)
+    for win in (0, window):
+        out, lse = fa_mod.flash_attention_cuda(q, k, v, lens, window=win, return_lse=True)
+        torch.cuda.synchronize()
+        want = ref.flash_attention_ref(q, k, v, lengths=lens, window=win)
+        tol = 2e-2 if dtype == BF16 else 1e-4
+        torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+        torch.testing.assert_close(lse, _lse_ref(q.float(), k.float(), lens, True, win), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,causal,dtype", [(1, True, F32), (77, True, F32), (77, False, BF16), (300, True, BF16)])
+def test_flash_wgmma_group_of_16_strided_views_and_empty_rows(cuda_device, s, causal, dtype):
+    """The wgmma route at a group of 16 (GLM-4-9B's, heads 16 x 8 positions a
+    block) on transposed views of a (B, S, H, hd) projection, S = 1 and S
+    off the tile, a row with no valid key (zeros, LSE -inf)."""
+    g = torch.Generator(device=cuda_device).manual_seed(32)
+    b, h, kv, hd = 3, 32, 2, 128
+    assert fa_mod.flash_plan(b, h, kv, s, hd, dtype, 0, 132).route == "wgmma"
+    q = _randn(g, (b, s, h, hd), cuda_device, dtype).transpose(1, 2)
+    k, v = (_randn(g, (b, s, kv, hd), cuda_device, dtype).transpose(1, 2) for _ in range(2))
+    lens = torch.tensor([0, s, (s + 1) // 2], dtype=torch.int32, device=cuda_device)
+    out, lse = fa_mod.flash_attention_cuda(q, k, v, lens, causal=causal, return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and (out[0] == 0).all() and (lse[0] == -torch.inf).all()
+    want = ref.flash_attention_ref(q, k, v, lengths=lens, causal=causal)
+    tol = 2e-2 if dtype == BF16 else 1e-4
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse[1:], _lse_ref(q.float(), k.float(), lens, causal, 0)[1:], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,kv,s,hd,dtype", [
+    (2, 32, 2, 1024, 128, F32),  # GLM-4-9B's training forward: wgmma, two warpgroups
+    (8, 96, 8, 256, 192, F32),  # Nemotron-4-340B
+    (8, 32, 32, 256, 64, BF16),  # MusicGen-large in bf16
+    (8, 12, 12, 32, 64, F32),  # the smallest bucket
+])
+def test_flash_forward_gives_the_same_bits_on_two_calls_and_in_a_graph(cuda_device, b, h, kv, s, hd, dtype):
+    """No atomics: two calls give the same bits.  A CUDA graph captured over
+    the inputs, replayed after they are rewritten with new values, gives an
+    eager call's bits on the new values: the tensor maps encoded at capture
+    point at the buffers, not at their contents."""
+    g = torch.Generator(device=cuda_device).manual_seed(33)
+    q = _randn(g, (b, h, s, hd), cuda_device, dtype)
+    k, v = (_randn(g, (b, kv, s, hd), cuda_device, dtype) for _ in range(2))
+    first, second = (fa_mod.flash_attention_cuda(q, k, v, return_lse=True) for _ in range(2))
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fa_mod.flash_attention_cuda(q, k, v, return_lse=True)  # warm-up on the capture's stream
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = fa_mod.flash_attention_cuda(q, k, v, return_lse=True)
+    for t in (q, k, v):
+        t.copy_(_randn(g, t.shape, cuda_device, dtype))
+    graph.replay()
+    eager = fa_mod.flash_attention_cuda(q, k, v, return_lse=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(replayed, eager))
+    assert not torch.equal(replayed[0], first[0])
 
 
 # ------------------------------------------------------------- backwards
