@@ -1,0 +1,5 @@
+"""``latency_p95_ms`` above capacity: recorded, not judged."""
+
+from orloj_bench.harness import load_metric
+
+read = load_metric("latency_p95_ms")
