@@ -63,10 +63,19 @@ from .eventwheel import EventWheel
 from .request import Request
 from .requeststore import RequestStore
 from .scheduler import Batch
+from .spans import (
+    LOOP_RUN,
+    SCHED_NEXT_BATCH,
+    SCHED_ON_ARRIVAL,
+    SCHED_ON_BATCH_DONE,
+    SCHED_ON_DECODE_STEP,
+    SpanLog,
+)
 
 __all__ = [
     "DISPATCH_POLICIES",
     "ENGINES",
+    "HOOKS",
     "DecodeExecutorLike",
     "DecodeModelExecutor",
     "Executor",
@@ -349,6 +358,15 @@ class SimResult:
     n_model_loads: int = 0
     n_model_evicts: int = 0
     model_load_ms: float = 0.0
+    # ``sched_time_ms`` split by hook (the keys of :data:`HOOKS`; they sum
+    # to it, ``on_decode_step`` included), and each hook's calls:
+    # ``on_arrival`` counts every request delivered, in bulk too, and
+    # ``next_batch`` plus ``on_decode_step`` make ``n_decisions``.  With
+    # ``charge_scheduler_overhead`` only ``next_batch`` is charged.
+    hook_ms: dict[str, float] = dataclasses.field(default_factory=dict)
+    hook_calls: dict[str, int] = dataclasses.field(default_factory=dict)
+    # The span log the run recorded into, when the caller passed one.
+    spans: SpanLog | None = None
 
     @property
     def conserved(self) -> bool:
@@ -598,6 +616,12 @@ _NO_EVENT = (math.inf, -1)
 # the oracle (regression-tested over the full small grid).
 ENGINES = ("scalar", "array")
 
+# The scheduler hooks the loops meter, the keys of ``SimResult.hook_ms`` and
+# ``hook_calls``, and the span each is recorded as in a :class:`SpanLog`.
+HOOKS = ("next_batch", "on_arrival", "on_batch_done", "on_decode_step")
+_NEXT_BATCH, _ON_ARRIVAL, _ON_BATCH_DONE, _ON_DECODE_STEP = range(4)
+_HOOK_SPANS = (SCHED_NEXT_BATCH, SCHED_ON_ARRIVAL, SCHED_ON_BATCH_DONE, SCHED_ON_DECODE_STEP)
+
 
 def run_event_loop(
     requests: Sequence[Request],
@@ -611,6 +635,7 @@ def run_event_loop(
     faults: "FaultPlanLike | None" = None,
     residency: "ResidencyPlanLike | None" = None,
     wall_budget_s: float = 0.0,
+    spans: SpanLog | None = None,
 ) -> SimResult:
     """Drive ``workers`` replica schedulers against one arrival stream.
 
@@ -658,6 +683,14 @@ def run_event_loop(
     zero new branches — the ``single-model-noop`` claim gates this
     bitwise.  Residency composes with neither fault injection nor decode
     batches (both raise ``ValueError``, the pinned unsupported seams).
+
+    ``spans`` is an optional :class:`~repro_torch.core.spans.SpanLog`: the
+    scalar loop then records each scheduler hook call as a span (the
+    ``next_batch`` span carries the dispatched batch's size), the loop
+    itself as ``loop.run``, and each dispatched request's wait in its
+    ``queue_wait_ms``, and returns the log as ``SimResult.spans``.  The
+    array engine refuses a span log (``ValueError``).  Without one the
+    loops meter each hook into ``SimResult.hook_ms``/``hook_calls`` alone.
     """
     workers = list(workers)
     if not workers:
@@ -681,6 +714,10 @@ def run_event_loop(
     if engine not in ENGINES:
         raise ValueError(
             f"unknown engine {engine!r}; known: {list(ENGINES)}"
+        )
+    if spans is not None and engine == "array":
+        raise ValueError(
+            "span logs are not supported by the array engine"
         )
     if residency is not None and faults is not None:
         # Crash-during-load semantics (is a half-loaded model resident?
@@ -747,7 +784,8 @@ def run_event_loop(
 
     peak_heap = len(events)
     worker_busy_time = 0.0
-    sched_time = 0.0  # wall-clock seconds inside scheduler hooks
+    hook_s = [0.0] * len(HOOKS)  # wall-clock seconds inside each scheduler hook
+    hook_n = [0] * len(HOOKS)
     n_decisions = 0
     n_batches = 0
     last_time = 0.0
@@ -756,8 +794,14 @@ def run_event_loop(
     # wake): the dedup that keeps the heap from flooding under light load.
     pending_wake: list[float | None] = [None] * n
 
+    def metered(hook: int, dt: float, n: int = 1) -> None:
+        hook_s[hook] += dt
+        hook_n[hook] += n
+        if spans is not None:
+            spans.close(_HOOK_SPANS[hook], dt)
+
     def try_dispatch(w: int, now: float) -> None:
-        nonlocal worker_busy_time, peak_heap, sched_time, n_decisions
+        nonlocal worker_busy_time, peak_heap, n_decisions
         if pool.busy[w] or down[w]:
             return
         worker = workers[w]
@@ -766,8 +810,11 @@ def run_event_loop(
         batch, wake = worker.scheduler.next_batch(now)
         # simlint: ignore[R1] -- closes the overhead meter opened above
         dt = _time.perf_counter() - t0
-        sched_time += dt
+        hook_s[_NEXT_BATCH] += dt
+        hook_n[_NEXT_BATCH] += 1
         n_decisions += 1
+        if spans is not None:
+            spans.close(SCHED_NEXT_BATCH, dt, 0 if batch is None else len(batch.requests))
         overhead = dt * 1e3 if charge_scheduler_overhead else 0.0
         if batch is not None and getattr(batch, "decode", False):
             # Resumable token-level execution (DESIGN.md §12): the dispatch
@@ -792,6 +839,8 @@ def run_event_loop(
             for r in batch.requests:
                 r.started = start
                 pool.discharge(w, r.rid)
+            if spans is not None:
+                spans.waited(batch.requests, start)
             pool.busy[w] = True
             worker_busy_time += dur
             inflight[w] = (start, start + dur)
@@ -828,6 +877,8 @@ def run_event_loop(
             for r in batch.requests:
                 r.started = start
                 pool.discharge(w, r.rid)
+            if spans is not None:
+                spans.waited(batch.requests, start)
             pool.busy[w] = True
             worker_busy_time += stall + dur
             inflight[w] = (start - stall, start + dur)
@@ -876,6 +927,8 @@ def run_event_loop(
         # simlint: ignore[R1] -- wall-budget truncation is real elapsed time by design; the sim clock stays virtual
         wall_deadline = _time.perf_counter() + wall_budget_s
     n_events = 0
+    # simlint: ignore[R1] -- stamps the loop's span on the device trace's clock; the sim clock stays virtual
+    run_start = _time.time_ns() if spans is not None else 0
     while events:
         now, _, kind, payload = heapq.heappop(events)
         n_events += 1
@@ -957,7 +1010,7 @@ def run_event_loop(
                 else:
                     t0 = _time.perf_counter()  # simlint: ignore[R1] -- overhead meter, not sim time
                     workers[w].scheduler.on_arrival(req, now)
-                    sched_time += _time.perf_counter() - t0  # simlint: ignore[R1] -- overhead meter, not sim time
+                    metered(_ON_ARRIVAL, _time.perf_counter() - t0)  # simlint: ignore[R1] -- overhead meter, not sim time
                     try_dispatch(w, now)
             for w, group in buffered.items():
                 pool.pending_offset[w] = 0
@@ -969,7 +1022,7 @@ def run_event_loop(
                 else:
                     for req in group:
                         sched.on_arrival(req, now)
-                sched_time += _time.perf_counter() - t0  # simlint: ignore[R1] -- overhead meter, not sim time
+                metered(_ON_ARRIVAL, _time.perf_counter() - t0, len(group))  # simlint: ignore[R1] -- overhead meter, not sim time
         elif kind == _DONE:
             w, batch, ep = payload
             if ep != epoch[w]:
@@ -987,7 +1040,7 @@ def run_event_loop(
                 # simlint: ignore[R5] -- one alone-times list per completed batch (feedback path), not per request
                 batch, now, [r.true_time for r in batch.requests]
             )
-            sched_time += _time.perf_counter() - t0  # simlint: ignore[R1] -- overhead meter, not sim time
+            metered(_ON_BATCH_DONE, _time.perf_counter() - t0)  # simlint: ignore[R1] -- overhead meter, not sim time
             try_dispatch(w, now)
         elif kind == _STEP:
             # One decode iteration of a resumable execution: advance token
@@ -1004,7 +1057,7 @@ def run_event_loop(
             joined = workers[w].scheduler.on_decode_step(
                 finished, len(run.active), now
             )
-            sched_time += _time.perf_counter() - t0  # simlint: ignore[R1] -- overhead meter, not sim time
+            metered(_ON_DECODE_STEP, _time.perf_counter() - t0)  # simlint: ignore[R1] -- overhead meter, not sim time
             n_decisions += 1
             if joined:
                 for r in joined:
@@ -1092,8 +1145,10 @@ def run_event_loop(
             pool.charge(w, req)
             t0 = _time.perf_counter()  # simlint: ignore[R1] -- overhead meter, not sim time
             workers[w].scheduler.on_arrival(req, now)
-            sched_time += _time.perf_counter() - t0  # simlint: ignore[R1] -- overhead meter, not sim time
+            metered(_ON_ARRIVAL, _time.perf_counter() - t0)  # simlint: ignore[R1] -- overhead meter, not sim time
             try_dispatch(w, now)
+    if spans is not None:
+        spans.add(LOOP_RUN, run_start, _time.time_ns())  # simlint: ignore[R1] -- closes the loop's span opened above
 
     ok = sum(1 for r in requests if r.ok)
     late = sum(1 for r in requests if r.finished is not None and not r.ok)
@@ -1109,6 +1164,7 @@ def run_event_loop(
     lat = np.array(
         [r.finished - r.release for r in requests if r.finished is not None]
     )
+    hook_ms = {h: s * 1e3 for h, s in zip(HOOKS, hook_s)}
     return SimResult(
         n_total=len(requests),
         n_finished_ok=ok,
@@ -1120,7 +1176,7 @@ def run_event_loop(
         latencies=lat,
         n_workers=n,
         peak_heap_size=peak_heap,
-        sched_time_ms=sched_time * 1e3,
+        sched_time_ms=sum(hook_ms.values()),
         n_decisions=n_decisions,
         n_batches=n_batches,
         n_rejected=n_rejected,
@@ -1130,6 +1186,9 @@ def run_event_loop(
         n_model_loads=res.n_loads if res is not None else 0,
         n_model_evicts=res.n_evicts if res is not None else 0,
         model_load_ms=res.load_ms_total if res is not None else 0.0,
+        hook_ms=hook_ms,
+        hook_calls=dict(zip(HOOKS, hook_n)),
+        spans=spans,
     )
 
 
@@ -1223,7 +1282,8 @@ def _array_loop(
     peak_pending = n_req + len(wheel)
     arr_left = n_req  # arrivals not yet delivered to a scheduler
     worker_busy_time = 0.0
-    sched_time = 0.0  # wall-clock seconds inside scheduler hooks
+    hook_s = [0.0] * len(HOOKS)  # wall-clock seconds inside each scheduler hook
+    hook_n = [0] * len(HOOKS)
     n_decisions = 0
     n_batches = 0
     last_time = 0.0
@@ -1254,7 +1314,7 @@ def _array_loop(
     )
 
     def try_dispatch(w: int, now: float) -> None:
-        nonlocal worker_busy_time, peak_pending, sched_time, n_decisions
+        nonlocal worker_busy_time, peak_pending, n_decisions
         if busy[w] or down[w]:
             return
         worker = workers[w]
@@ -1263,7 +1323,8 @@ def _array_loop(
         batch, wake = worker.scheduler.next_batch(now)
         # simlint: ignore[R1] -- closes the overhead meter opened above
         dt = pc() - t0
-        sched_time += dt
+        hook_s[_NEXT_BATCH] += dt
+        hook_n[_NEXT_BATCH] += 1
         n_decisions += 1
         overhead = dt * 1e3 if charge_scheduler_overhead else 0.0
         if batch is not None and getattr(batch, "decode", False):
@@ -1516,7 +1577,8 @@ def _array_loop(
                             dr0(store, i, now)
                         else:
                             sched0.on_arrival(req, now)
-                        sched_time += pc() - t0  # simlint: ignore[R1] -- overhead meter, not sim time
+                        hook_s[_ON_ARRIVAL] += pc() - t0  # simlint: ignore[R1] -- overhead meter, not sim time
+                        hook_n[_ON_ARRIVAL] += 1
                         try_dispatch(0, now)
                     if held:
                         deliver = delivers[0]
@@ -1526,7 +1588,8 @@ def _array_loop(
                         else:
                             for req in held:
                                 sched0.on_arrival(req, now)
-                        sched_time += pc() - t0  # simlint: ignore[R1] -- overhead meter, not sim time
+                        hook_s[_ON_ARRIVAL] += pc() - t0  # simlint: ignore[R1] -- overhead meter, not sim time
+                        hook_n[_ON_ARRIVAL] += len(held)
                     continue
                 i = a
                 while i < b and not busy[0]:
@@ -1535,7 +1598,8 @@ def _array_loop(
                         dr0(store, i, now)
                     else:
                         sched0.on_arrival(reqs[i], now)
-                    sched_time += pc() - t0  # simlint: ignore[R1] -- overhead meter, not sim time
+                    hook_s[_ON_ARRIVAL] += pc() - t0  # simlint: ignore[R1] -- overhead meter, not sim time
+                    hook_n[_ON_ARRIVAL] += 1
                     i += 1
                     try_dispatch(0, now)
                 if i < b:
@@ -1551,7 +1615,8 @@ def _array_loop(
                     else:
                         for req in reqs[i:b]:
                             sched0.on_arrival(req, now)
-                    sched_time += pc() - t0  # simlint: ignore[R1] -- overhead meter, not sim time
+                    hook_s[_ON_ARRIVAL] += pc() - t0  # simlint: ignore[R1] -- overhead meter, not sim time
+                    hook_n[_ON_ARRIVAL] += b - i
             else:
                 # Multi-worker: route/deliver in arrival order, exactly as
                 # the scalar loop does (same pick → same rng draws, same
@@ -1583,7 +1648,8 @@ def _array_loop(
                     else:
                         t0 = pc()  # simlint: ignore[R1] -- overhead meter, not sim time
                         workers[w].scheduler.on_arrival(req, now)
-                        sched_time += pc() - t0  # simlint: ignore[R1] -- overhead meter, not sim time
+                        hook_s[_ON_ARRIVAL] += pc() - t0  # simlint: ignore[R1] -- overhead meter, not sim time
+                        hook_n[_ON_ARRIVAL] += 1
                         try_dispatch(w, now)
                 for w, group in buffered.items():
                     pool.pending_offset[w] = 0
@@ -1595,7 +1661,8 @@ def _array_loop(
                         sched = workers[w].scheduler
                         for req in group:
                             sched.on_arrival(req, now)
-                    sched_time += pc() - t0  # simlint: ignore[R1] -- overhead meter, not sim time
+                    hook_s[_ON_ARRIVAL] += pc() - t0  # simlint: ignore[R1] -- overhead meter, not sim time
+                    hook_n[_ON_ARRIVAL] += len(group)
             continue
         # --- dynamic event (DONE/WAKE) ---
         if take == _TAKE_BUF:
@@ -1640,7 +1707,8 @@ def _array_loop(
                     r.finished = now
             t0 = pc()  # simlint: ignore[R1] -- overhead meter, not sim time
             workers[w].scheduler.on_batch_done(batch, now, alone)
-            sched_time += pc() - t0  # simlint: ignore[R1] -- overhead meter, not sim time
+            hook_s[_ON_BATCH_DONE] += pc() - t0  # simlint: ignore[R1] -- overhead meter, not sim time
+            hook_n[_ON_BATCH_DONE] += 1
             try_dispatch(w, now)
         elif kind == _STEP:
             # One decode iteration — mirrors the scalar loop's handler
@@ -1660,7 +1728,8 @@ def _array_loop(
             joined = workers[w].scheduler.on_decode_step(
                 finished, len(run.active), now
             )
-            sched_time += pc() - t0  # simlint: ignore[R1] -- overhead meter, not sim time
+            hook_s[_ON_DECODE_STEP] += pc() - t0  # simlint: ignore[R1] -- overhead meter, not sim time
+            hook_n[_ON_DECODE_STEP] += 1
             n_decisions += 1
             if joined:
                 # simlint: ignore[R5] -- one row-index list per join group
@@ -1754,7 +1823,8 @@ def _array_loop(
             pool.charge(w, req)
             t0 = pc()  # simlint: ignore[R1] -- overhead meter, not sim time
             workers[w].scheduler.on_arrival(req, now)
-            sched_time += pc() - t0  # simlint: ignore[R1] -- overhead meter, not sim time
+            hook_s[_ON_ARRIVAL] += pc() - t0  # simlint: ignore[R1] -- overhead meter, not sim time
+            hook_n[_ON_ARRIVAL] += 1
             try_dispatch(w, now)
 
     if not live_state:
@@ -1772,6 +1842,7 @@ def _array_loop(
     ok, late, dropped, unserved, lat = store.fold_stats(
         no_drops=no_drops, n_off_ledger=n_rejected + n_failed
     )
+    hook_ms = {h: s * 1e3 for h, s in zip(HOOKS, hook_s)}
     return SimResult(
         n_total=n_req,
         n_finished_ok=ok,
@@ -1783,7 +1854,7 @@ def _array_loop(
         latencies=lat,
         n_workers=n,
         peak_heap_size=peak_pending,
-        sched_time_ms=sched_time * 1e3,
+        sched_time_ms=sum(hook_ms.values()),
         n_decisions=n_decisions,
         n_batches=n_batches,
         n_rejected=n_rejected,
@@ -1793,6 +1864,8 @@ def _array_loop(
         n_model_loads=res.n_loads if res is not None else 0,
         n_model_evicts=res.n_evicts if res is not None else 0,
         model_load_ms=res.load_ms_total if res is not None else 0.0,
+        hook_ms=hook_ms,
+        hook_calls=dict(zip(HOOKS, hook_n)),
     )
 
 

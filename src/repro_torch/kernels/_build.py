@@ -29,6 +29,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import torch
@@ -50,6 +51,12 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+# The ``kernels.build`` counter, beside the kernels' launch counters: the
+# ``nvcc`` runs of this process and the wall seconds that the
+# :func:`build_all` calls which ran one spent building.  A count above
+# zero means that a run of this checkout built its kernels first.
+nvcc_runs = 0
+nvcc_seconds = 0.0
 
 
 def nvcc_path() -> str:
@@ -109,8 +116,11 @@ def build_all(names: tuple[str, ...] = KERNELS) -> dict[str, str]:
     ``-Xptxas -v`` register and shared-memory report; empty when the
     library was already built).  Raises with the compiler's output if a
     build fails."""
+    global nvcc_runs, nvcc_seconds
     with _lock:
+        t0 = time.perf_counter()
         started = {n: _start(n) for n in names}
+        ran = sum(job is not None for job in started.values())
         logs: dict[str, str] = {}
         failed: list[str] = []
         for n, job in started.items():
@@ -125,6 +135,9 @@ def build_all(names: tuple[str, ...] = KERNELS) -> dict[str, str]:
                 failed.append(f"{n} (exit {proc.returncode}):\n{out}")
             else:
                 os.replace(tmp, lib)
+        if ran:
+            nvcc_runs += ran
+            nvcc_seconds += time.perf_counter() - t0
         if failed:
             raise RuntimeError("nvcc failed to build " + "\n".join(failed))
         return logs

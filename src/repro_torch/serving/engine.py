@@ -39,6 +39,7 @@ from ..core.distributions import BatchLatencyModel
 from ..core.eventloop import SimResult, Worker, run_event_loop, simulate
 from ..core.request import Request
 from ..core.scheduler import Batch
+from ..core.spans import ENGINE_FIT, EXEC_CAPTURE, EXEC_H2D, EXEC_PAD, EXEC_REPLAY, SpanLog
 from ..device import resolve_device
 from ..kernels import ops
 from ..models import Model, ModelConfig
@@ -124,7 +125,15 @@ class TorchExecutor:
     bucket, measured_ms)``; profiling calls go through :meth:`_run`
     directly and are not logged.  The log is a bounded ring
     (:data:`MEASURED_LOG_CAP` most recent batches); :meth:`drain_measured`
-    reads and resets it around one serving run."""
+    reads and resets it around one serving run.
+
+    :attr:`spans`, ``None`` unless a caller sets a
+    :class:`~repro_torch.core.spans.SpanLog`, records each served batch's
+    ``exec.pad`` (the padded batch, its rows padded to the batch size),
+    every run's ``exec.h2d`` (the tokens' copy into the static buffer, up
+    to the pre-replay synchronize) and ``exec.replay`` (the measured
+    bracket), and a shape's first use as ``exec.capture``, in that order
+    and without overlap."""
 
     MEASURED_LOG_CAP = 4096
 
@@ -141,6 +150,7 @@ class TorchExecutor:
         else:
             self._stream = self._pool = None
         self.measured: deque[tuple[int, int, float]] = deque(maxlen=self.MEASURED_LOG_CAP)
+        self.spans: SpanLog | None = None
 
     @property
     def params(self) -> Params:
@@ -166,39 +176,63 @@ class TorchExecutor:
     def _forward(self, tokens: torch.Tensor) -> torch.Tensor:
         return self.model.logits(self._params, {"tokens": tokens})
 
-    def _run(self, tokens: np.ndarray) -> tuple[float, int]:
-        """Execute one padded batch; returns ``(measured_ms, padded_k)``.
-
-        The padded batch size is what the card actually ran — the latency
-        model must be fit against it (not the requested k)."""
+    def _pad(self, tokens: np.ndarray) -> np.ndarray:
+        """``tokens`` with zero rows up to the padded batch size."""
         k = self.padded_batch_size(tokens.shape[0])
         if k > tokens.shape[0]:
             tokens = np.concatenate(
                 [tokens, np.zeros((k - tokens.shape[0],) + tokens.shape[1:], tokens.dtype)]
             )
+        return tokens
+
+    def _capture(self, tokens: np.ndarray) -> None:
+        """First run of a shape: the warm-up (where the kernels are built)
+        and the capture, on the batch's own tokens, so that neither
+        pollutes a measurement."""
+        start = time.time_ns()
+        static = torch.empty(tokens.shape, dtype=torch.int64, device=self.device)
+        static.copy_(torch.from_numpy(np.ascontiguousarray(tokens, np.int64)))
+        self._shapes[tokens.shape] = static, _Program(
+            lambda: self._forward(static), self.device, self._stream, self._pool
+        )
+        if self.spans is not None:
+            self.spans.add(EXEC_CAPTURE, start, time.time_ns())
+
+    def _run(self, tokens: np.ndarray) -> tuple[float, int]:
+        """Execute one padded batch; returns ``(measured_ms, padded_k)``.
+
+        The padded batch size is what the card actually ran — the latency
+        model must be fit against it (not the requested k)."""
+        tokens = self._pad(tokens)
         key = tokens.shape
-        batch = torch.from_numpy(np.ascontiguousarray(tokens, np.int64))
         if key not in self._shapes:
-            # First run of a shape: the warm-up (where the kernels are built)
-            # and the capture never pollute a measurement.
-            static = torch.empty(key, dtype=torch.int64, device=self.device)
-            static.copy_(batch)
-            self._shapes[key] = static, _Program(
-                lambda: self._forward(static), self.device, self._stream, self._pool
-            )
+            self._capture(tokens)
+        spans = self.spans
+        copy_start = time.time_ns() if spans is not None else 0
+        batch = torch.from_numpy(np.ascontiguousarray(tokens, np.int64))
         static, program = self._shapes[key]
         static.copy_(batch)
         _sync(self.device)
+        replay_start = time.time_ns() if spans is not None else 0
         t0 = time.perf_counter()
         self.last_logits = program()
         _sync(self.device)
-        return (time.perf_counter() - t0) * 1e3, k
+        ms = (time.perf_counter() - t0) * 1e3
+        if spans is not None:
+            spans.add(EXEC_H2D, copy_start, replay_start)
+            spans.add(EXEC_REPLAY, replay_start, time.time_ns())
+        return ms, key[0]
 
     def __call__(self, batch: Batch, now: float) -> float:
+        spans = self.spans
+        start = time.time_ns() if spans is not None else 0
         # Admission (make_requests) caps lengths at the largest bucket, so
         # overflow here is a programming error — fail loudly.
         padded = make_padded_batch(batch.requests, self.cfg.buckets, overflow="error")
-        ms, k_pad = self._run(padded.tokens)
+        tokens = self._pad(padded.tokens)
+        if spans is not None:
+            spans.add(EXEC_PAD, start, time.time_ns())
+        ms, k_pad = self._run(tokens)
         self.measured.append((k_pad, padded.labels_bucket, ms))
         return ms
 
@@ -434,7 +468,9 @@ class TorchServingEngine:
     # -------------------------------------------------------- profiling
     def profile_latency_model(self) -> BatchLatencyModel:
         """Fit Eq. 3 (l_B = c0 + c1·k·l) from the measured (k, bucket) grid;
-        l is the padded bucket length in tokens, c1 converts tokens → ms."""
+        l is the padded bucket length in tokens, c1 converts tokens → ms.
+        With the executor's span log set, the whole fit is ``engine.fit``."""
+        start = time.time_ns()
         xs, ys = [], []
         for bucket in self.cfg.buckets:
             for k in sorted(set(self.cfg.batch_sizes)):
@@ -448,6 +484,8 @@ class TorchServingEngine:
         a = np.array([[1.0, k * l] for k, l in xs])
         coef, *_ = np.linalg.lstsq(a, np.array(ys), rcond=None)
         c0, c1 = float(max(coef[0], 0.01)), float(max(coef[1], 1e-6))
+        if self.executor.spans is not None:
+            self.executor.spans.add(ENGINE_FIT, start, time.time_ns())
         return BatchLatencyModel(c0=c0, c1=c1, bucket=0.0)
 
     # ------------------------------------------------------ request gen
