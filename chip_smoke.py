@@ -7,8 +7,9 @@ Phases, each reported on its own lines; any failure exits non-zero:
 
 1. card: the GPU's name and power limit (``nvidia-smi``), the torch, CUDA
    and nvcc versions;
-2. build: the seven kernels (flash and decode attention, RMSNorm, MoE
-   gating, and the backwards of flash attention, RMSNorm and the gates)
+2. build: the eight kernels (flash and decode attention, RMSNorm, MoE
+   gating, the backwards of flash attention, RMSNorm and the gates, and
+   the float32 GEMM)
    built from ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a, one
    nvcc a source, all started together, with each kernel's registers,
    spills and static shared memory from ``-Xptxas -v``;
@@ -63,6 +64,14 @@ Phases, each reported on its own lines; any failure exits non-zero:
    rereading kernel); the gates at Arctic's, E 3 to 256, ties, -inf
    logits, bf16; then each redesigned backward (flash at GLM-4's shape,
    RMSNorm at (2048, 4096)) called twice, its gradients bit-identical;
+3c. gemm: the float32 GEMM at GLM-4-9B's products and M 32, 128 and 256
+   against the float64 product beside cuBLAS float32 and one TF32 pass
+   (within 4x cuBLAS's error, 100x under one pass's), its graph-replay
+   time and own duration beside its bound (weight bytes at 3.35 TB/s or
+   the work at 165 TFLOP/s), ``x @ w`` and ``torch.matmul``; the forward's
+   products summed at each M; two calls and a graph replayed over
+   rewritten inputs bit for bit; its ``sass:`` census
+   (``scripts/sass_census.py gemm``); the kernel line's ``gemm`` entry;
 4. orloj_gpt: full width (12 layers, d 768, 12 heads, vocab 32000, weights
    from a seeded ``torch.Generator``) profiled for Eq. 3 and serving 100
    requests under the Orloj scheduler, each served shape (and the decode
@@ -515,14 +524,14 @@ def ptxas_report(out: str) -> list[tuple[str, str]]:
     for ln in out.splitlines():
         # A type named twice is mangled the second time as a substitution
         # (S_, S0_, ...): bf16 queries over a bf16 cache read "13__nv_bfloat16S2_".
-        m = re.search(r"Function properties for .*?\d([a-z_]+_kernel(?:_wgmma)?)(?:I((?:f|13__nv_bfloat16|S\d*_)+)"
+        m = re.search(r"Function properties for .*?\d([a-z_]+_kernel(?:_wgmma)?)(?:I((?:f|13__nv_bfloat16|S\d*_)*)"
                       r"((?:L[a-z]\d+E)*))?", ln)
         if m:
             types: list[str] = []
             for t in re.findall(r"f|13__nv_bfloat16|S\d*_", m.group(2) or ""):
                 types.append("float" if t == "f" else "bf16" if t[0] == "1" else types[-1])
             args = [*types, *re.findall(r"L[a-z](\d+)E", m.group(3) or "")]
-            name = f"{m.group(1)}<{','.join(args)}>" if m.group(2) else m.group(1)
+            name = f"{m.group(1)}<{','.join(args)}>" if args else m.group(1)
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m and name:
@@ -841,6 +850,142 @@ def phase_kernels_vs_plain() -> dict[str, float]:
 # products), RMSNorm's dx and the logits' gradient to ROW_TOL (one row sum
 # in another order), RMSNorm's dscale to F32_TOL (a column sum over T rows
 # in another order); bf16 to BF16_TOL.
+# GLM-4-9B's float32 weight products, (K, N): q and o, k and v, gate and
+# up, down, and the head.
+GEMM_PRODUCTS = {"q/o": (4096, 4096), "k/v": (4096, 256), "gate/up": (4096, 13696),
+                 "down": (13696, 4096), "head": (4096, 151552)}
+GEMM_PER_LAYER = {"q/o": 2, "k/v": 2, "gate/up": 2, "down": 1}
+
+
+def _tf32_one_pass(x):
+    """x rounded to TF32 (one pass's operands): to nearest, ties away from zero."""
+    import torch
+
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def gemm_errors(x, w, y) -> tuple[float, float, float]:
+    """The kernel's, cuBLAS float32's and one TF32 pass's largest error
+    against the float64 product, each over the largest |product|."""
+    want = x.double() @ w.double()
+    scale = want.abs().max().item()
+    one = _tf32_one_pass(x).double() @ _tf32_one_pass(w).double()
+    errs = tuple((got.double() - want).abs().max().item() / scale for got in (y, x @ w, one))
+    del want, one
+    return errs
+
+
+def phase_gemm() -> dict:
+    """The float32 GEMM (``kernels/gemm.py``, ``csrc/gemm.cu``) at GLM-4-9B's
+    products and M 32, 128 and 256: each against the float64 product beside
+    cuBLAS float32 and one TF32 pass (the kernel within 4x cuBLAS's error
+    and at least 100x under one pass's), then its time by graph replay and
+    its own duration beside its bound (the weight's bytes at 3.35 TB/s or
+    the work at 165 TFLOP/s, three TF32 passes), the plain version's
+    (``x @ w``) and ``torch.matmul``'s; two calls and a graph replayed over
+    rewritten inputs bit for bit; the kernel's instruction census.  Returns
+    the kernel line's entry."""
+    import torch
+
+    from repro_torch.kernels import gemm
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cases, failures = [], []
+    layer_ms = {m: 0.0 for m in (32, 128, 256)}
+    head_ms = {}
+    for name, (k, n) in GEMM_PRODUCTS.items():
+        w = _randn(gen, (k, n), torch.float32) / math.sqrt(k)
+        for m in (32, 128, 256):
+            x = _randn(gen, (m, k), torch.float32)
+            plan = gemm.gemm_plan(m, n, k, sms)
+            y = gemm.gemm_cuda(x, w)
+            torch.cuda.synchronize()
+            err, err_f32, err_one = gemm_errors(x, w, y)
+            ok = err <= 4 * err_f32 and 100 * err <= err_one
+            ms = time_ms(lambda: gemm.gemm_cuda(x, w))
+            own = own_ms(lambda: gemm.gemm_cuda(x, w), "gemm_kernel")
+            plain = time_ms(lambda: gemm.gemm_ref(x, w))
+            library = time_ms(lambda: torch.matmul(x, w))
+            bound, by = gemm.bound_s(m, n, k)
+            tflops = gemm.flops(m, n, k) / own / 1e9
+            cases.append({"product": name, "m": m, "k": k, "n": n, "plan": _gemm_plan_text(plan),
+                          "max_rel_err": err, "cublas_f32_rel_err": err_f32, "tf32_one_pass_rel_err": err_one,
+                          "ms": ms, "own_ms": own, "bound_ms": bound * 1e3, "bound_by": by,
+                          "plain_ms": plain, "library_ms": library, "tflops": tflops})
+            log(f"gemm {name} ({m},{k})x({k},{n}) f32 [{_gemm_plan_text(plan)}]: err {err:.3e} "
+                f"(cuBLAS f32 {err_f32:.3e}, one TF32 pass {err_one:.3e}) {'ok' if ok else 'FAIL'}; "
+                f"{ms:.5f} ms, own {own:.5f} ms ({tflops:.1f} TFLOP/s), /bound {own / (bound * 1e3):.3f} "
+                f"(bound {bound * 1e3:.5f} ms, {by}); plain {plain:.5f} ms, torch.matmul {library:.5f} ms")
+            if not ok:
+                failures.append(f"{name} M={m}")
+            if name == "head":
+                head_ms[m] = own
+            else:
+                layer_ms[m] += GEMM_PER_LAYER[name] * own
+            del x, y
+        del w
+        torch.cuda.empty_cache()
+    for m, ms in layer_ms.items():
+        bound = sum(GEMM_PER_LAYER[nm] * gemm.bound_s(m, n, k)[0] * 1e3
+                    for nm, (k, n) in GEMM_PRODUCTS.items() if nm != "head")
+        log(f"gemm GLM-4-9B forward at M={m}: 40 layers x {ms:.5f} ms + head {head_ms[m]:.5f} ms = "
+            f"{40 * ms + head_ms[m]:.3f} ms of products (their bounds: {40 * bound:.3f} ms + head)")
+    for line in _gemm_bit_identity(gen):
+        log(line)
+    census = subprocess.run([sys.executable, str(Path(__file__).resolve().parent / "scripts" / "sass_census.py"),
+                             "gemm"], capture_output=True, text=True, check=True, timeout=600).stdout
+    for line in census.splitlines():
+        log(line)
+    if failures:
+        raise SystemExit(f"gemm: errors outside float32's band: {failures}")
+    row = next(c for c in cases if c["product"] == "gate/up" and c["m"] == 128)
+    return {"name": "gemm", "route": "cuda", "source": "src/repro_torch/kernels/csrc/gemm.cu",
+            "replaces": None, "max_rel_err": max(c["max_rel_err"] for c in cases),
+            **{key: row[key] for key in ("ms", "own_ms", "bound_ms", "bound_by", "plain_ms", "library_ms",
+                                         "tflops")},
+            "cases": cases}
+
+
+def _gemm_plan_text(plan) -> str:
+    return f"T{plan.tokens} S{plan.splits}x{plan.tiles_per_split} st{plan.stages}"
+
+
+def _gemm_bit_identity(gen) -> list[str]:
+    """The GEMM at a split and an unsplit plan: two calls equal bit for bit,
+    and a graph of the call replayed over rewritten inputs equal to an
+    eager call on them."""
+    import torch
+
+    from repro_torch.kernels import gemm
+
+    lines = []
+    for m, k, n in ((32, 4096, 256), (128, 4096, 13696), (37, 13696, 4096)):
+        x = _randn(gen, (m, k), torch.float32)
+        w = _randn(gen, (k, n), torch.float32)
+        a, b = gemm.gemm_cuda(x, w), gemm.gemm_cuda(x, w)
+        g = torch.cuda.CUDAGraph()
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            gemm.gemm_cuda(x, w)
+        torch.cuda.current_stream().wait_stream(stream)
+        with torch.cuda.graph(g):
+            out = gemm.gemm_cuda(x, w)
+        x.copy_(_randn(gen, (m, k), torch.float32))
+        g.replay()
+        eager = gemm.gemm_cuda(x, w)
+        torch.cuda.synchronize()
+        same = torch.equal(a, b) and torch.equal(out, eager)
+        lines.append(f"gemm bit identity ({m},{k})x({k},{n}) "
+                     f"[{_gemm_plan_text(gemm.gemm_plan(m, n, k, torch.cuda.get_device_properties(0).multi_processor_count))}]: "
+                     f"two calls and a replay over rewritten inputs {'bit-identical' if same else 'DIFFER'}")
+        if not same:
+            raise SystemExit(lines[-1])
+    return lines
+
+
 def _grad_err(got, want, tol: float) -> tuple[float, bool]:
     """Max abs error of a gradient and whether it is within ``tol``
     relative and ``tol`` times the largest |want| (at least 1) absolute."""
@@ -3218,6 +3363,7 @@ def main() -> int:
     timed("build", phase_build)
     errs = timed("kernels vs plain", phase_kernels_vs_plain)
     errs.update(timed("backward vs plain", phase_backward_vs_plain))
+    gemm_entry = timed("gemm", phase_gemm)
 
     ecfg = EngineConfig()
     windows = (timed("orloj_gpt", run_orloj_gpt, ecfg) + timed("arctic", run_arctic, ecfg)
@@ -3231,9 +3377,10 @@ def main() -> int:
     windows += timed("placement", run_placement)
     timed("memory", run_memory_prediction)
     timed("op dispatch", run_op_dispatch)
-    counts = {name: sum(w[name] for w in windows) for name in _build.KERNELS}
+    counts = {name: sum(w.get(name, 0) for w in windows) for name in _build.KERNELS}
 
     kernels = timed("kernel line", phase_kernel_line, counts, errs)
+    kernels["kernels"].append({**gemm_entry, "launches": counts["gemm"]})
     log(f"done in {time.perf_counter() - t_start:.1f} s")
     log(line)
     log(json.dumps(kernels))

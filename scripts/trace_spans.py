@@ -25,7 +25,10 @@ The readings of a window with a log:
 - under the device trace, ``idle_charged``: the window's device-idle time
   under a ``sched.next_batch`` or ``exec.*`` span, over the window (%),
   beside ``device_idle`` and the idle time under each span name;
-- of the set-up, ``setup_fit_s`` (``engine.fit``) and ``kernels.build``.
+- of the set-up, ``setup_fit_s`` (``engine.fit``) and ``kernels.build``;
+- of the set-up's graphs, the GEMM counter: each captured (k, bucket)
+  graph's GEMM launches over the forward's float32 weight products
+  (``gemm.weight_products``, 7 x 40 + 1 = 281 for GLM-4-9B), as a share.
 
 Without a card it runs on the CPU (``--device cpu``, no traced window),
 where only the counts mean anything.
@@ -62,6 +65,18 @@ def setup(cell, seed: int, device, log):
     engine.executor.spans = None
     harness._sync(device)
     return engine, lm
+
+
+def gemm_share(engine) -> dict:
+    """The GEMM counter of each captured graph of the executor: its GEMM
+    launches, and their share of the forward's weight products."""
+    from repro_torch.kernels import gemm
+
+    products = gemm.weight_products(engine.model.cfg)
+    by_shape = {f"{k}x{b}": prog.launches.get("gemm", 0)
+                for (k, b), (_, prog) in sorted(engine.executor._shapes.items()) if prog.graph is not None}
+    return {"gemm_launches_by_graph": by_shape, "weight_products": products,
+            "gemm_share_min": 100.0 * min(by_shape.values(), default=0) / products}
 
 
 def window(cell, engine, lm, seed: int, seconds: float, device, log, trace: bool):
@@ -197,7 +212,8 @@ def main(argv: list[str] | None = None) -> int:
                     "setup_fit_s": fit_log.ns[ENGINE_FIT] / 1e9,
                     "captures": fit_log.calls[EXEC_CAPTURE],
                     "capture_s": fit_log.ns[EXEC_CAPTURE] / 1e9,
-                    "nvcc_runs": _build.nvcc_runs, "nvcc_seconds": _build.nvcc_seconds}
+                    "nvcc_runs": _build.nvcc_runs, "nvcc_seconds": _build.nvcc_seconds,
+                    **gemm_share(engine)}
     print(json.dumps(out["setup"] | {"span_cost": out["span_cost"]}), flush=True)
     modes = ["off", "on", "on", "off"] * args.pairs + (["traced"] if device.type == "cuda" else [])
     for mode in modes:

@@ -415,19 +415,6 @@ struct Hop {
   }
 };
 
-// The float32 split of four values at `src` into big (written to `big`) and
-// small (to `small`); the three may alias.
-__device__ __forceinline__ void split4(const uint8_t* src, uint8_t* big, uint8_t* small) {
-  const float4 x = *reinterpret_cast<const float4*>(src);
-  uint4 b, s;
-  split_tf32(x.x, b.x, s.x);
-  split_tf32(x.y, b.y, s.y);
-  split_tf32(x.z, b.z, s.z);
-  split_tf32(x.w, b.w, s.w);
-  *reinterpret_cast<uint4*>(big) = b;
-  *reinterpret_cast<uint4*>(small) = s;
-}
-
 // The float32 split pass of one stage, by `n` threads (`i0` this one's
 // index): K big in place and small beside it (the same swizzled layout), V
 // into Vᵀ big and small with each 8-key group's keys in the order 0, 2, 4,
@@ -945,27 +932,6 @@ cudaError_t dispatch_mma_sync(const Args& a, const Plan& p) {
     return cudaErrorInvalidValue;
   return p.warps == 2 ? launch_mma_sync<T, HD, 2, kMmaSyncBlockK, SOFTCAP>(a)
                       : launch_mma_sync<T, HD, 4, kMmaSyncBlockK, SOFTCAP>(a);
-}
-
-// cuTensorMapEncodeTiled, looked up in libcuda through the runtime (no -lcuda).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found{};
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
-                                                                      : nullptr;
-  }();
-  return fn;
 }
 
 // The 4-dimensional map (hd, S, heads, B) of a (B, heads, S, hd) tensor

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) primitives of the flash-attention forward's wgmma route
-// (flash_attention.cu): mbarriers, TMA tile loads, the shared-memory
-// matrix descriptors and swizzles of wgmma, and the wgmma products it
-// issues, as inline PTX.
+// (flash_attention.cu) and of the float32 GEMM (gemm.cu): mbarriers, TMA
+// tile loads and the host's tensor-map encoder, the shared-memory matrix
+// descriptors and swizzles of wgmma, and the wgmma products they issue, as
+// inline PTX.
 //
 // A wgmma names every accumulator register of its thread as an operand,
 // and inline PTX cannot loop, so each product shape below is written out:
@@ -9,13 +10,16 @@
 // from registers (bf16 64 keys, K K-major; TF32 16 or 32 keys), and, for
 // P·V, the bf16 product with P from registers and V read transposed from
 // shared memory and the TF32 one with P from registers and Vᵀ from shared
-// memory, at every head size the kernel takes.  The accumulator layout is that of
+// memory, at every head size the kernel takes; the GEMM's TF32 product
+// with A from registers at every token width it takes (8 to 128).  The accumulator layout is that of
 // mma.sync's m16n8 fragments, one warp to 16 rows: d[4n + e] holds row
 // g + 8·(e / 2) and column 8n + 2t + (e % 2) of the warp's rows (g = lane
 // / 4, t = lane % 4).
 #pragma once
 
 #include <cuda.h>
+#include <cuda_runtime.h>
+
 #include <cstdint>
 
 namespace repro_torch {
@@ -69,6 +73,15 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
+// A box of a 2-dimensional tensor map into shared memory at `dst`.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
 // A box of shared memory at `src` into a 4-dimensional tensor map
 // (elements outside the tensor are not written); completes in the
 // issuing thread's bulk group.
@@ -99,6 +112,29 @@ __device__ __forceinline__ void fence_proxy_async() {
 // A barrier among `threads` threads (a multiple of 32) on hardware barrier `id`.
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// cuTensorMapEncodeTiled, looked up in libcuda through the runtime (no
+// -lcuda); null where the installed CUDA driver lacks it.  Host code: the maps are encoded
+// for each launch and passed as __grid_constant__ parameters.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
+                                                                      : nullptr;
+  }();
+  return fn;
 }
 
 // ------------------------------------------------------------ swizzles
@@ -144,11 +180,17 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 // Keeps the compiler from moving accumulator registers across the
-// asynchronous products (CUTLASS's warpgroup_fence_operand).
+// asynchronous products (CUTLASS's warpgroup_fence_operand); the second
+// form the A fragments that a product still reads from registers.
 template <int N>
 __device__ __forceinline__ void pin_registers(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void pin_registers(uint32_t (&a)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(a[i])::"memory");
 }
 
 // d (64 x N, float32) += A·Bᵀ with A (64 x 16 bf16 or 64 x 8 TF32) and B
@@ -292,6 +334,17 @@ __device__ __forceinline__ void wgmma_bf16_rs<192>(float (&d)[96], const uint32_
       "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
       "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
       "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32_rs<8>(float (&d)[4], const uint32_t (&a)[4], uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3"
+      "}, {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 

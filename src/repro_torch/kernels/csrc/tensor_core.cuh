@@ -1,7 +1,8 @@
 // Primitives shared by the flash-attention forward (flash_attention.cu) and
 // backward (flash_attention_bwd.cu): 16-byte cp.async copies into shared
 // memory, the split-TF32 products that run float32 on the tensor cores, and
-// the bfloat16 product, each a single mma.sync of sm_80 and later.
+// the bfloat16 product, each a single mma.sync of sm_80 and later.  The
+// split itself (split_tf32, split4) is also the float32 GEMM's (gemm.cu).
 #pragma once
 
 #include <cstdint>
@@ -56,6 +57,18 @@ __device__ __forceinline__ uint32_t to_tf32(float x) {
 __device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
   big = to_tf32(x);
   small = to_tf32(x - __uint_as_float(big));
+}
+// The split of four float32 values at `src` (16 bytes) into big (written to
+// `big`) and small (to `small`); the three may alias.
+__device__ __forceinline__ void split4(const uint8_t* src, uint8_t* big, uint8_t* small) {
+  const float4 x = *reinterpret_cast<const float4*>(src);
+  uint4 b, s;
+  split_tf32(x.x, b.x, s.x);
+  split_tf32(x.y, b.y, s.y);
+  split_tf32(x.z, b.z, s.z);
+  split_tf32(x.w, b.w, s.w);
+  *reinterpret_cast<uint4*>(big) = b;
+  *reinterpret_cast<uint4*>(small) = s;
 }
 
 // d += a·b, m16n8k8, TF32 inputs, float32 accumulator.

@@ -9,8 +9,8 @@ raises.  A meta tensor (the dry-run's shards) goes to the operator too,
 whose fake implementation is its meta kernel.  There is no switch and no fallback from a failed build or launch
 to the plain version.
 
-Each of the seven kernels (four forwards, three backwards) is an operator
-with
+Each of the seven attention, normalisation and gating kernels (four
+forwards, three backwards) is an operator with
 
 - its CUDA implementation: the kernel's launcher (:mod:`.flash_attention`,
   :mod:`.decode_attention`, :mod:`.rmsnorm`, :mod:`.moe_gating`), which
@@ -31,6 +31,15 @@ with
 
 Under no_grad (serving) the flash forward skips its log-sum-exp output,
 as the raw kernel always did: its ``lse`` comes back (B, H, 0).
+
+The float32 GEMM (``repro_torch::gemm``, :mod:`.gemm`) is routed by what its
+inputs show rather than by the device alone: :func:`matmul` takes it for
+CUDA float32 products that need no gradient and whose rows TMA can
+address (:func:`.gemm.takes`), and the plain ``x @ w`` for everything else,
+meta tensors included (the dry-run's products stay DTensor's own).  It has
+a fake implementation and a FLOP formula, no autograd formula (a product
+that needs a gradient never reaches it) and no sharding rule (it runs on
+the local shards of :func:`repro_torch.models.sharding.linear`).
 """
 
 from __future__ import annotations
@@ -45,6 +54,7 @@ from torch.utils.flop_counter import register_flop_formula
 from . import _build
 from . import decode_attention as _decode
 from . import flash_attention as _flash
+from . import gemm as _gemm
 from . import moe_gating as _gating
 from . import ref
 from . import rmsnorm as _rmsnorm
@@ -59,6 +69,7 @@ _COUNTERS = {
     "flash_attention_bwd": (_flash, "backward_launches"),
     "rmsnorm_bwd": (_rmsnorm, "backward_launches"),
     "moe_gating_bwd": (_gating, "backward_launches"),
+    "gemm": (_gemm, "launches"),
 }
 
 
@@ -219,6 +230,17 @@ def _gating_backward(ctx, dgates, dids):
 _gating_op.register_autograd(_gating_backward, setup_context=_gating_setup)
 
 
+# ----------------------------------------------------------------- gemm
+@torch.library.custom_op("repro_torch::gemm", mutates_args=(), device_types="cuda")
+def _gemm_op(x: Tensor, w: Tensor) -> Tensor:
+    return _gemm.gemm_cuda(x, w)
+
+
+@_gemm_op.register_fake
+def _(x, w):
+    return _empty((x.shape[0], w.shape[1]), x)
+
+
 # ------------------------------------------------------------ the FLOPs
 def _lengths_or_full(lengths, b: int, s: int) -> np.ndarray:
     """Each row's length: its value where ``lengths`` holds data, ``s`` for
@@ -264,6 +286,11 @@ def _decode_flop(q, k_cache, v_cache, valid_len, softcap, out_val=None, **_):
     b, h, hd = q.shape
     s = k_cache.shape[2]
     return int(4 * hd * h * _lengths_or_full(valid_len, b, s).sum())
+
+
+@register_flop_formula(torch.ops.repro_torch.gemm, get_raw=True)
+def _gemm_flop(x, w, out_val=None, **_):
+    return _gemm.flops(x.shape[0], w.shape[1], x.shape[1])
 
 
 # ------------------------------------------------------ sharding rules
@@ -438,6 +465,25 @@ def moe_gating(logits: torch.Tensor, top_k: int) -> tuple[torch.Tensor, torch.Te
         return ref.moe_gating_ref(logits, top_k)
     _register_rules()
     return _gating_op(logits.contiguous(), int(top_k))
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., K) @ w (K, *N) → (..., *N): a product with a weight (2-D, or
+    a head projection's (d, H, hd) or an output projection's flattened
+    (H·hd, d)).  The GEMM kernel where :func:`.gemm.takes` the inputs, x's
+    rows copied first where TMA cannot address them; else the plain
+    product."""
+    if not _gemm.takes(x, w):
+        if w.dim() == 2:
+            return x @ w
+        return (x @ w.reshape(w.shape[0], -1)).unflatten(-1, tuple(w.shape[1:]))
+    x2 = x.reshape(-1, x.shape[-1])
+    if not _gemm.tma_rows(x2):
+        x2 = x2.contiguous()
+        if x2.data_ptr() % 16:
+            x2 = x2.clone()
+    w2 = _gemm.weight_2d(w)
+    return _gemm_op(x2, w2).view(*x.shape[:-1], *w.shape[1:])
 
 
 def launch_counts() -> dict[str, int]:

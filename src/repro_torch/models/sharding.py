@@ -38,6 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Placement, Replicate, Shard
 
+from ..kernels import ops
 from .config import ModelConfig
 
 FSDP_THRESHOLD = 8_000_000_000  # params; above this, shard params over data
@@ -431,11 +432,14 @@ def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     moves alone: it partial-sums activations over ``data`` around FSDP
     weights, gathers weights whole under batch-sharded rows, and may shard
     a flattened (H·hd) that H does not divide, which no placement of (H,
-    hd) can express."""
+    hd) can express.
+
+    Each product (on DTensors, each shard's local product) goes through
+    :func:`repro_torch.kernels.ops.matmul`: the float32 GEMM kernel where
+    its inputs are CUDA float32 tensors that need no gradient, else the
+    plain ``x @ w``."""
     if not isinstance(x, DTensor) and not isinstance(w, DTensor):
-        if w.ndim == 2:
-            return x @ w
-        return (x @ w.reshape(w.shape[0], -1)).unflatten(-1, tuple(w.shape[1:]))
+        return ops.matmul(x, w)
     from torch.distributed.tensor import Partial
 
     mesh = _mesh_of(x, w)
@@ -453,12 +457,7 @@ def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         else:
             x_pl.append(Replicate()), w_pl.append(Replicate()), out_pl.append(Replicate())
 
-    def local(a, b):
-        if b.ndim == 2:
-            return a @ b
-        return (a @ b.flatten(1)).unflatten(-1, tuple(b.shape[1:]))
-
-    return reduce_partial(_shard_map(local, out_pl, (x_pl, w_pl), mesh, x, w))
+    return reduce_partial(_shard_map(ops.matmul, out_pl, (x_pl, w_pl), mesh, x, w))
 
 
 def merge_heads(ctx: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
@@ -466,9 +465,10 @@ def merge_heads(ctx: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     projection, placed on DTensors as :func:`linear` places its products,
     the contraction running over (H, hd): where the weight's heads (or head
     size) are sharded, ctx takes the same sharding and the shards' partial
-    sums are all-reduced."""
+    sums are all-reduced.  The product goes through
+    :func:`repro_torch.kernels.ops.matmul`, as :func:`linear`'s do."""
     if not isinstance(ctx, DTensor) and not isinstance(wo, DTensor):
-        return ctx.flatten(-2) @ wo.flatten(0, 1)
+        return ops.matmul(ctx.flatten(-2), wo.flatten(0, 1))
     from torch.distributed.tensor import Partial
 
     mesh = _mesh_of(ctx, wo)
@@ -487,7 +487,7 @@ def merge_heads(ctx: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
             c_pl.append(Replicate()), w_pl.append(Replicate()), out_pl.append(Replicate())
 
     def local(a, b):
-        return a.flatten(-2) @ b.flatten(0, 1)
+        return ops.matmul(a.flatten(-2), b.flatten(0, 1))
 
     return reduce_partial(_shard_map(local, out_pl, (c_pl, w_pl), mesh, ctx, wo))
 

@@ -971,7 +971,8 @@ def test_flash_rmsnorm_and_gating_carry_a_graph_on_the_card(cuda_device, op):
 
 def _chip_smoke():
     """``chip_smoke.py`` at the repo's root, which holds the train step's
-    card-vs-CPU comparison that its T3/T4 phases and this file share."""
+    card-vs-CPU comparison that its T3/T4 phases and this file share, and
+    the GEMM's error readings (``gemm_errors``)."""
     import importlib.util
     from pathlib import Path
 
@@ -1272,3 +1273,134 @@ def test_a_train_step_that_syncs_raises_at_capture(cuda_device):
         counts = ops.launch_counts()
         assert counts["flash_attention"] == counts["flash_attention_bwd"] == cfg.n_layers  # the eager step's
     ops.reset_launch_counts()
+
+
+# ----------------------------------------------------- the float32 GEMM
+# GLM-4-9B's weight products (K, N): q and o, k and v, gate and up, down,
+# the head; then Arctic's (d 7168, MLP 4864) and Hymba-1.5B's (d 1600, MLP 5504).
+GEMM_GLM4 = [(4096, 4096), (4096, 256), (4096, 13696), (13696, 4096), (4096, 151552)]
+GEMM_OTHER = [(7168, 7168), (7168, 4864), (4864, 7168), (1600, 1600), (1600, 5504), (5504, 1600)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", GEMM_GLM4 + GEMM_OTHER)
+@pytest.mark.parametrize("m", [1, 8, 32, 37, 64, 128, 256, 2048])
+def test_gemm_kernel_matches_the_float64_product(cuda_device, m, k, n):
+    """The split-TF32 kernel within 4x cuBLAS float32's error of the float64
+    product and at least 100x under one TF32 pass's, at GLM-4-9B's products
+    (and Arctic's and Hymba's widths) for M = 1 to 2048, through
+    ``ops.matmul`` (one launch)."""
+    from repro_torch.kernels import gemm as gemm_mod
+
+    g = torch.Generator(device=cuda_device).manual_seed(m + k + n)
+    x = _randn(g, (m, k), cuda_device)
+    w = _randn(g, (k, n), cuda_device) / k**0.5
+    before = gemm_mod.launches
+    y = ops.matmul(x, w)
+    torch.cuda.synchronize()
+    assert gemm_mod.launches == before + 1 and y.shape == (m, n) and y.dtype == torch.float32
+    err, err_f32, err_one = _chip_smoke().gemm_errors(x, w, y)
+    print(f"({m},{k})x({k},{n}): kernel {err:.3e}, cuBLAS f32 {err_f32:.3e}, one TF32 pass {err_one:.3e}")
+    assert err <= 4 * err_f32 and 100 * err <= err_one
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(32, 4096, 256), (128, 4096, 13696), (37, 13696, 4096), (1, 4096, 4096),
+                                   (300, 4096, 4096)])
+def test_gemm_gives_the_same_bits_on_two_calls_and_in_a_graph(cuda_device, m, k, n):
+    """Split and unsplit plans: two calls equal bit for bit (the split-K
+    partials are added in split order), and a CUDA graph of the call,
+    replayed over rewritten inputs, equals an eager call on them."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import gemm as gemm_mod
+
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    x = _randn(g, (m, k), cuda_device)
+    w = _randn(g, (k, n), cuda_device)
+    plan = gemm_mod.gemm_plan(m, n, k, _build.sm_count(cuda_device))
+    a, b = gemm_mod.gemm_cuda(x, w), gemm_mod.gemm_cuda(x, w)
+    assert torch.equal(a, b), plan
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        gemm_mod.gemm_cuda(x, w)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = gemm_mod.gemm_cuda(x, w)
+    for seed in (12, 13):
+        x.copy_(_randn(torch.Generator(device=cuda_device).manual_seed(seed), (m, k), cuda_device))
+        graph.replay()
+        eager = gemm_mod.gemm_cuda(x, w)
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager), plan
+
+
+@pytest.mark.cuda
+def test_gemm_launcher_refuses_what_it_does_not_take(cuda_device):
+    """The wrapper's checks (shapes, types, rows off 16 bytes, a gradient)
+    and the C launcher's (a plan that does not fit the kernel's layout)
+    raise; ``ops.matmul`` routes bf16, gradients, unaligned rows and a
+    transposed weight to the plain product and launches nothing."""
+    import dataclasses
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import gemm as gemm_mod
+
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    x = _randn(g, (64, 512), cuda_device)
+    w = _randn(g, (512, 256), cuda_device)
+    for bad_x, bad_w, err in ((x[:, :510], w[:510], ValueError),  # K off a multiple of 4
+                              (x, w[:, :254], ValueError),  # N off a multiple of 4
+                              (x.bfloat16(), w.bfloat16(), TypeError),
+                              (x.view(-1)[1:1 + 64 * 508].view(64, 508), w[:508], ValueError),  # off 16 bytes
+                              (x.t(), w[:64], ValueError),  # K not contiguous
+                              (x, w.cpu(), ValueError)):
+        with pytest.raises(err):
+            gemm_mod.gemm_cuda(bad_x, bad_w)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        gemm_mod.gemm_cuda(x.clone().requires_grad_(True), w)
+    plan = gemm_mod.gemm_plan(64, 256, 512, _build.sm_count(cuda_device))
+    for bad in (dataclasses.replace(plan, stages=9, shared_bytes=gemm_mod.shared_bytes(plan.tokens, 9)),
+                dataclasses.replace(plan, shared_bytes=plan.shared_bytes + 16),
+                dataclasses.replace(plan, tokens=48),
+                dataclasses.replace(plan, warpgroups=1),
+                dataclasses.replace(plan, splits=plan.splits + 4),  # splits left without a K tile
+                dataclasses.replace(plan, splits=1, tiles_per_split=1)):  # K not covered
+        with pytest.raises(RuntimeError, match="launch failed"):
+            gemm_mod.gemm_cuda(x, w, bad)
+    before = gemm_mod.launches
+    for a, b in ((x.bfloat16(), w.bfloat16()), (x, w.clone().requires_grad_(True)),
+                 (_randn(g, (4, 50), cuda_device), _randn(g, (50, 8), cuda_device)),
+                 (x[:, :256], _randn(g, (256, 256), cuda_device).t())):  # a transposed table
+        out = ops.matmul(a, b)
+        torch.testing.assert_close(out.float(), (a @ b).float(), rtol=0, atol=0)
+    assert gemm_mod.launches == before
+
+
+@pytest.mark.cuda
+def test_a_captured_glm4_9b_forward_launches_281_gemms(cuda_device):
+    """GLM-4-9B at full width and depth, one served shape captured as the
+    executor captures it: the graph's launches hold 7 x 40 + 1 = 281 GEMM
+    launches, every weight product of the forward, and its logits equal an
+    eager forward's bit for bit."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import gemm as gemm_mod
+    from repro_torch.models import Model
+    from repro_torch.serving.engine import EngineConfig, TorchExecutor
+
+    cfg = get_config("glm4_9b")
+    model = Model(cfg, device=cuda_device)
+    params = model.init(torch.Generator(device=cuda_device).manual_seed(0))
+    ex = TorchExecutor(model, params, EngineConfig(buckets=(32,), batch_sizes=(1,)))
+    tokens = np.arange(1, 33, dtype=np.int32)[None]
+    ex._run(tokens)
+    launches = ex._shapes[(1, 32)][1].launches
+    assert gemm_mod.weight_products(cfg) == 281 and launches["gemm"] == 281, launches
+    with torch.no_grad():
+        want = model.logits(params, {"tokens": torch.from_numpy(tokens).long().to(cuda_device)})
+    assert torch.equal(ex.last_logits, want)
+    del ex, params, model
+    torch.cuda.empty_cache()
