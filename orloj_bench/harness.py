@@ -3,9 +3,13 @@ loop, the counting, the metrics and the check against the reference.
 
 What the program under test contributes is ``repro_torch``'s serving engine
 (its ``TorchExecutor`` replays each padded shape as a CUDA graph), its
-Eq.-3 fit, its ``OrlojScheduler`` and its event loop.  Everything else is
-the benchmark's: the weights, the arrivals, the clock around each batch,
-the counting, the trace's reduction and the reference.
+Eq.-3 fit, its ``OrlojScheduler`` and its event loop, and in a traced run
+its span log and its graphs' launch counters.  Everything else is the
+benchmark's: the weights, the arrivals, the clock around each batch, the
+counting, the trace's reduction and the reference.  What differs between
+model families (the program's configuration, the weights' layout, the work
+of a batch, the reference) is the family's: ``families/<block_pattern>.py``
+and ``reference/<block_pattern>.py``.
 
 The window.  ``run_event_loop`` runs one ``Worker(scheduler, executor)``
 with ``charge_scheduler_overhead=True`` until its virtual clock passes
@@ -40,7 +44,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from . import reference, traffic
+from . import families, reference, traffic
 from .weights import make_weights, port_params
 
 ROOT = Path(__file__).resolve().parent
@@ -69,6 +73,13 @@ def load_cell(name: str, bench: dict | None = None) -> Cell:
         raise SystemExit(f"no workload {name!r} in BENCHMARK.json")
     cfg_entry = next(c for c in bench["configs"] if c["name"] == entry["config"])
     cfg = json.loads((ROOT.parent / cfg_entry["file"]).read_text())
+    need = [str(p.relative_to(ROOT.parent)) for p in families.files(cfg["block_pattern"])]
+    missing = [p for p in need if not (ROOT.parent / p).exists()]
+    if missing:
+        raise SystemExit(f"configuration {entry['config']!r} has block_pattern "
+                         f"{cfg['block_pattern']!r}, which needs {' and '.join(need)}; "
+                         f"missing: {', '.join(missing)}")
+    engine_fields(cfg)
     tr = traffic.load("traffic", entry["traffic"])
     return Cell(
         name=name,
@@ -82,28 +93,34 @@ def load_cell(name: str, bench: dict | None = None) -> Cell:
 
 
 def model_config(cfg: dict):
-    """The program's ``ModelConfig`` from the configuration's file."""
-    from repro_torch.models import ModelConfig
+    """The program's ``ModelConfig`` from the configuration's file, by its
+    family."""
+    return families.of(cfg).model_config(cfg)
 
-    return ModelConfig(
-        name=cfg["name"],
-        arch_type=cfg["arch_type"],
-        n_layers=cfg["n_layers"],
-        d_model=cfg["d_model"],
-        n_heads=cfg["n_heads"],
-        n_kv_heads=cfg["n_kv_heads"],
-        d_ff=cfg["d_ff"],
-        vocab_size=cfg["vocab_size"],
-        head_dim=cfg["head_dim"],
-        rope_theta=cfg["rope_theta"],
-        sliding_window=cfg["sliding_window"],
-        norm="rmsnorm",
-        mlp="swiglu",
-        block_pattern=cfg["block_pattern"],
-        dtype=cfg["dtype"],
-        param_dtype=cfg["dtype"],
-        remat=False,
-    )
+
+ENGINE_KEYS = ("buckets", "batch_sizes")
+
+
+def engine_fields(cfg: dict) -> dict:
+    """The configuration's ``engine`` key: the served shapes, ``buckets``
+    and ``batch_sizes``, and nothing else.  Any other field of the
+    program's ``EngineConfig`` (its fit's repetitions, its batch timeout)
+    would change how the program serves without a benchmark file showing
+    it, and is refused."""
+    fields = cfg.get("engine", {})
+    other = sorted(set(fields) - set(ENGINE_KEYS))
+    if other:
+        raise SystemExit(f"configuration {cfg['name']!r} sets engine {', '.join(other)}; "
+                         f"a configuration's engine may set only {' and '.join(ENGINE_KEYS)}")
+    return {k: tuple(v) for k, v in fields.items()}
+
+
+def engine_config(cfg: dict):
+    """The program's ``EngineConfig``: its defaults (buckets 32–256, batches
+    1–8), or the served shapes in the configuration file's ``engine``."""
+    from repro_torch.serving.engine import EngineConfig
+
+    return EngineConfig(**engine_fields(cfg))
 
 
 def _sync(device: torch.device) -> None:
@@ -178,7 +195,13 @@ class CheckedExecutor:
 
 @dataclasses.dataclass
 class Run:
-    """What the metric readers see."""
+    """What the metric readers see.  ``spans`` is the program's span log
+    (``repro_torch.core.spans.SpanLog``) of a traced run, from the Eq.-3 fit
+    through the window, else ``None``; ``launches`` maps each padded shape
+    (k, bucket) that the program captured as a graph to the kernel launches
+    a replay of it counts (``_Program.launches``; none on the CPU, which
+    captures no graph), which ``gemm_roofline`` holds against the family's
+    products."""
 
     cell: Cell
     sim: object
@@ -190,6 +213,8 @@ class Run:
     setup_s: float
     failed: set[int]
     trace: object = None
+    spans: object = None
+    launches: dict = dataclasses.field(default_factory=dict)
 
 
 def compare(cfg: dict, sample: list[tuple], w: dict) -> list[dict]:
@@ -239,23 +264,26 @@ def make_requests(stream: traffic.Stream, buckets: tuple[int, ...]) -> list:
     ]
 
 
-def setup(cell: Cell, seed: int, device: torch.device):
+def setup(cell: Cell, seed: int, device: torch.device, spans=None):
     """The engine on the seeded weights, the Eq.-3 fit (which warms and
-    captures every served shape) → (engine, latency model, weights)."""
-    from repro_torch.serving.engine import EngineConfig, TorchServingEngine
+    captures every served shape) → (engine, latency model, weights).  A
+    span log ``spans`` is set on the executor before the fit."""
+    from repro_torch.serving.engine import TorchServingEngine
 
     cfg = cell.config
     w = make_weights(cfg, seed, device)
-    engine = TorchServingEngine(model_config(cfg), EngineConfig(), seed=seed, device=device,
+    engine = TorchServingEngine(model_config(cfg), engine_config(cfg), seed=seed, device=device,
                                 params=port_params(cfg, w))
+    engine.executor.spans = spans
     lm = engine.profile_latency_model()
     _sync(device)
     return engine, lm, w
 
 
 def window(cell: Cell, engine, lm, seed: int, seconds: float, trace: bool,
-           device: torch.device):
-    """Serve one window → (sim result, requests, executor, trace or None)."""
+           device: torch.device, spans=None):
+    """Serve one window → (sim result, requests, executor, trace or None),
+    the loop recording into the span log ``spans`` where one is given."""
     from repro_torch.core.eventloop import Worker, run_event_loop
     from repro_torch.launch.serve import make_scheduler
 
@@ -273,7 +301,7 @@ def window(cell: Cell, engine, lm, seed: int, seconds: float, trace: bool,
 
         rec = Recorder()
     sim = run_event_loop(requests, [Worker(sched, exe)], horizon=horizon,
-                         charge_scheduler_overhead=True)
+                         charge_scheduler_overhead=True, spans=spans)
     _sync(device)
     tr_out = rec.stop() if rec is not None else None
     if sim.makespan_ms < horizon:
@@ -333,10 +361,16 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: torch.d
              t_start: float) -> tuple[dict, list[str]]:
     """One whole run → (the result's object, the lines that compare each
     number with its limit)."""
-    engine, lm, w = setup(cell, seed, device)
+    from repro_torch.core.spans import SpanLog
+
+    log = SpanLog() if trace else None
+    engine, lm, w = setup(cell, seed, device, spans=log)
     setup_s = time.perf_counter() - t_start
-    sim, requests, exe, tr = window(cell, engine, lm, seed, seconds, trace, device)
+    sim, requests, exe, tr = window(cell, engine, lm, seed, seconds, trace, device, spans=log)
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+    launches = {tuple(key): dict(program.launches)
+                for key, (_, program) in getattr(engine.executor, "_shapes", {}).items()
+                if hasattr(program, "launches")}
 
     slo = cell.traffic["slo_ms"]
     sample = exe.sample()
@@ -353,7 +387,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: torch.d
     counted, failed, n_lost = tally(requests, sim, slo, raised | bad)
 
     run = Run(cell=cell, sim=sim, counted=counted, t_end_ms=sim.makespan_ms,
-              slo_ms=slo, batches=batches, lm=lm, setup_s=setup_s, failed=failed, trace=tr)
+              slo_ms=slo, batches=batches, lm=lm, setup_s=setup_s, failed=failed, trace=tr,
+              spans=log, launches=launches)
     metrics = {}
     for m in (cell.per_layer if trace else cell.end_to_end):
         v = load_metric(m["name"])(run)

@@ -1,5 +1,5 @@
-"""The plain reference: a float32 forward of the benchmark's configurations in
-torch operations alone, one prompt at a time, layer by layer.
+"""The plain reference of the ``attn`` family: a float32 forward in torch
+operations alone, one prompt at a time, layer by layer.
 
 Written from the published description: a decoder of pre-norm blocks, each
 RMSNorm → RoPE attention with grouped KV heads (within a sliding window

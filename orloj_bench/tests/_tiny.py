@@ -1,10 +1,10 @@
-"""A tiny configuration of each kind of attention, for the CPU tests."""
+"""The tiny configurations of the CPU tests, one file a configuration in
+``tiny/``, found by glob: ``TINY`` maps each file's name, without its
+``tiny_`` prefix, to its dict.  A new family's tiny file is tested by every
+test that runs over ``TINY``."""
 
-_ATTN = dict(name="tiny_attn", arch_type="dense", block_pattern="attn", n_layers=2,
-             d_model=64, n_heads=4, n_kv_heads=2, head_dim=16, d_ff=96, vocab_size=300,
-             rope_theta=10000.0, sliding_window=0, dtype="float32")
+import json
+from pathlib import Path
 
-TINY = {
-    "attn": _ATTN,
-    "windowed": _ATTN | {"name": "tiny_windowed", "sliding_window": 8},
-}
+TINY = {p.stem.removeprefix("tiny_"): json.loads(p.read_text())
+        for p in sorted((Path(__file__).parent / "tiny").glob("*.json"))}

@@ -6,10 +6,11 @@ between chips to leave out.)"""
 import json
 import time
 
+import numpy as np
 import pytest
 import torch
 
-from orloj_bench import harness
+from orloj_bench import harness, trace
 from orloj_bench.tests._tiny import TINY
 
 
@@ -21,13 +22,13 @@ def _cell(kind: str):
     return cell
 
 
-def _run(kind="attn"):
-    res, lines = harness.run_cell(_cell(kind), 2**31 + 77, 2.0, False, torch.device("cpu"),
+def _run(kind="attn", traced=False):
+    res, lines = harness.run_cell(_cell(kind), 2**31 + 77, 2.0, traced, torch.device("cpu"),
                                   time.perf_counter())
     return res, lines
 
 
-@pytest.mark.parametrize("kind", ["attn", "windowed"])
+@pytest.mark.parametrize("kind", sorted(TINY))
 def test_sound_run_is_correct(kind):
     res, lines = _run(kind)
     assert res["correct"] and res["failed"] == 0, lines
@@ -111,3 +112,47 @@ def test_a_batch_that_raises_fails_its_requests(monkeypatch):
     res, lines = _run()
     assert not res["correct"] and res["checks"]["requests_raised"]["value"] > 0
     assert any("planted" in line for line in lines)
+
+
+class _HostRecorder:
+    """The device trace's stand-in on the CPU: one kernel-less window."""
+
+    def __init__(self):
+        self.t0 = time.time_ns()
+
+    def stop(self):
+        t1 = time.time_ns()
+        return trace.Trace(names=["kernel"], start_ns=np.array([self.t0]),
+                           end_ns=np.array([self.t0 + 1]), window=(self.t0, t1))
+
+
+@pytest.mark.parametrize("traced", [False, True])
+def test_a_traced_run_carries_the_programs_span_log(traced, monkeypatch):
+    """Traced: the program's span log, from the fit through the window, with
+    one ``loop.run`` and one ``exec.replay`` a served batch inside it;
+    untraced: none."""
+    from repro_torch.core import spans as sp
+
+    runs, real = [], harness.Run
+
+    def kept(**kw):
+        runs.append(real(**kw))
+        return runs[-1]
+
+    monkeypatch.setattr(harness, "Run", kept)
+    monkeypatch.setattr(trace, "Recorder", _HostRecorder)
+    res, lines = _run(traced=traced)
+    assert res["correct"], lines
+    (run,) = runs
+    assert run.launches == {}  # the CPU captures no graph, so counts no launch
+    if not traced:
+        assert run.spans is None
+        return
+    log = run.spans
+    assert isinstance(log, sp.SpanLog) and log.dropped == 0
+    (lo, hi, _), = log.intervals(sp.LOOP_RUN)
+    replays = log.intervals(sp.EXEC_REPLAY)
+    inside = replays[(replays[:, 0] >= lo) & (replays[:, 1] <= hi)]
+    assert len(inside) == len(run.batches) > 50
+    assert len(log.intervals(sp.ENGINE_FIT)) == 1
+    assert len(replays) > len(inside)  # the fit's replays come before the window

@@ -67,3 +67,54 @@ def test_every_metric_has_a_reader_and_every_file_is_used():
     for c in BENCH["configs"]:
         assert c["file"].startswith("orloj_bench/") and (ROOT.parent / c["file"]).exists()
         assert (ROOT / "checks" / f"{c['name']}.json").exists()
+        pattern = json.loads((ROOT.parent / c["file"]).read_text())["block_pattern"]
+        assert (ROOT / "families" / f"{pattern}.py").exists(), pattern
+        assert (ROOT / "reference" / f"{pattern}.py").exists(), pattern
+
+
+def _bench_with(tmp_path, cfg: dict) -> dict:
+    """BENCHMARK.json with the first cell's configuration replaced by ``cfg``."""
+    path = tmp_path / "config.json"
+    path.write_text(json.dumps(cfg))
+    bench = json.loads(json.dumps(BENCH))
+    bench["configs"][0]["file"] = str(path)
+    return bench
+
+
+def test_an_unknown_block_pattern_fails_in_load_cell_naming_both_files(tmp_path):
+    from orloj_bench import harness
+
+    c = BENCH["configs"][0]
+    cfg = json.loads((ROOT.parent / c["file"]).read_text()) | {"block_pattern": "nosuch"}
+    cell = next(w["name"] for w in BENCH["workloads"] if w["config"] == c["name"])
+    with pytest.raises(SystemExit) as e:
+        harness.load_cell(cell, _bench_with(tmp_path, cfg))
+    assert "orloj_bench/families/nosuch.py" in str(e.value)
+    assert "orloj_bench/reference/nosuch.py" in str(e.value)
+
+
+def test_a_configuration_may_set_the_engines_shapes(tmp_path):
+    from orloj_bench import harness
+    from repro_torch.serving.engine import EngineConfig
+
+    c = BENCH["configs"][0]
+    cfg = json.loads((ROOT.parent / c["file"]).read_text())
+    assert "engine" not in cfg and harness.engine_config(cfg) == EngineConfig()
+    cfg["engine"] = {"buckets": [256, 512, 1024], "batch_sizes": [1, 2]}
+    cell = next(w["name"] for w in BENCH["workloads"] if w["config"] == c["name"])
+    engine = harness.engine_config(harness.load_cell(cell, _bench_with(tmp_path, cfg)).config)
+    assert engine == EngineConfig(buckets=(256, 512, 1024), batch_sizes=(1, 2))
+
+
+@pytest.mark.parametrize("key", ["profile_reps", "batch_timeout_ms", "nosuch"])
+def test_a_configuration_may_set_no_other_engine_field(key, tmp_path):
+    from orloj_bench import harness
+
+    c = BENCH["configs"][0]
+    cfg = json.loads((ROOT.parent / c["file"]).read_text())
+    cfg["engine"] = {"buckets": [32, 64], key: 1}
+    cell = next(w["name"] for w in BENCH["workloads"] if w["config"] == c["name"])
+    with pytest.raises(SystemExit, match=f"sets engine {key};"):
+        harness.load_cell(cell, _bench_with(tmp_path, cfg))
+    with pytest.raises(SystemExit, match=f"sets engine {key};"):
+        harness.engine_config(cfg)
