@@ -7,9 +7,9 @@ Phases, each reported on its own lines; any failure exits non-zero:
 
 1. card: the GPU's name and power limit (``nvidia-smi``), the torch, CUDA
    and nvcc versions;
-2. build: the eight kernels (flash and decode attention, RMSNorm, MoE
-   gating, the backwards of flash attention, RMSNorm and the gates, and
-   the float32 GEMM)
+2. build: the nine kernels (flash and decode attention, RMSNorm, MoE
+   gating, the backwards of flash attention, RMSNorm and the gates, the
+   float32 GEMM and Mamba's selective scan)
    built from ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a, one
    nvcc a source, all started together, with each kernel's registers,
    spills and static shared memory from ``-Xptxas -v``;
@@ -43,7 +43,13 @@ Phases, each reported on its own lines; any failure exits non-zero:
    at every head size in both types, at one and two consumer warpgroups,
    at groups of 4 to 48 with lengths, windows and S = 1 (DBRX's g 6 and
    Arctic's g 7 at head size 128 in float32), and its mma_sync route
-   (float32 at head size 192), each line with the plan (``flash_attention.flash_plan``); then
+   (float32 at head size 192), each line with the plan (``flash_attention.flash_plan``); flash
+   with Hymba-1.5B's 128 meta tokens seen through its window of 1024 (the
+   ``prefix``: its largest served batch (4,25->5,2176,64), ragged rows)
+   and other prefixes in bf16 and at head size 192; the selective scan
+   (y and the last state, to F32_TOL) at Hymba-1.5B's served (4, 2176)
+   and (1, 2176) at inner width 3200, (8, 384), the narrow preset's (8,
+   256) at 1600 and ragged shapes; then
    the flash forward on each route (GLM-4's training shape with its LSE,
    orloj_gpt's, MusicGen's bf16, Nemotron's, the smallest bucket) called
    twice, and captured in a CUDA graph replayed over rewritten inputs
@@ -104,8 +110,9 @@ Phases, each reported on its own lines; any failure exits non-zero:
    float32 parameters): serve under Orloj with rmsnorm and flash launched,
    its graphs held against eager forwards, the token path (decode at a
    group of 5), decode ≡ forward over 16 tokens, an eager (8, 256)
-   forward's peak memory and the replay's device time by class
-   beside one layer's Mamba branch and its chunk scan alone; then 2 layers
+   forward's peak memory and the replay's device time by class (the
+   selective scan launched in every layer) beside one layer's Mamba branch
+   and its selective scan alone; then 2 layers
    at full width: a forward of 1100 tokens against 1100 decode steps across
    the 1024-slot ring's wrap;
 9. xlstm: xLSTM-1.3B at full width and depth (48 blocks, d 2048, 4 heads of
@@ -351,10 +358,11 @@ def grad_ms(forward, ins, dout) -> float:
     return start.elapsed_time(end) / (reps * graphs)
 
 
-def flash_work(q, k, lengths, causal: bool, window: int) -> tuple[int, int]:
+def flash_work(q, k, lengths, causal: bool, window: int, prefix: int = 0) -> tuple[int, int]:
     """(bytes, FLOPs) of flash attention on these inputs: q, k, v read once
     and the output written once, and 4·hd FLOPs for each (query, key) pair
-    the masks let through (q·k and p·v)."""
+    the masks let through (q·k and p·v; the keys below ``prefix`` pass the
+    window)."""
     import torch
 
     b, h, s, hd = q.shape
@@ -365,7 +373,7 @@ def flash_work(q, k, lengths, causal: bool, window: int) -> tuple[int, int]:
     if causal:
         mask &= j <= i
     if window > 0:
-        mask &= j > i - window
+        mask &= (j > i - window) | (j < prefix)
     lens = torch.full((b,), s) if lengths is None else lengths.cpu().clamp(0, s)
     pairs = sum(int(mask[:, : int(L)].sum()) for L in lens) * h
     elt = q.element_size()
@@ -373,17 +381,17 @@ def flash_work(q, k, lengths, causal: bool, window: int) -> tuple[int, int]:
     return nbytes, 4 * hd * pairs
 
 
-def flash_bound(q, k, lengths, causal: bool, window: int) -> tuple[float, str]:
+def flash_bound(q, k, lengths, causal: bool, window: int, prefix: int = 0) -> tuple[float, str]:
     """Least time (ms) with the float32 work at the SIMT rate."""
-    return _bound(*flash_work(q, k, lengths, causal, window))
+    return _bound(*flash_work(q, k, lengths, causal, window, prefix))
 
 
-def flash_tc_bound(q, k, lengths, causal: bool, window: int) -> tuple[float, str]:
+def flash_tc_bound(q, k, lengths, causal: bool, window: int, prefix: int = 0) -> tuple[float, str]:
     """Least time (ms) with the work on the tensor cores: float32 as three
     TF32 passes (the kernel's split-TF32 route), bf16 as one."""
     import torch
 
-    nbytes, flops = flash_work(q, k, lengths, causal, window)
+    nbytes, flops = flash_work(q, k, lengths, causal, window, prefix)
     if q.dtype == torch.float32:
         return _bound(nbytes, 3 * flops, TF32_FLOP_PER_S)
     return _bound(nbytes, flops, BF16_FLOP_PER_S)
@@ -409,6 +417,15 @@ def decode_bound(q, k_cache, valid_len, route: str) -> tuple[float, str]:
     if k_cache.dtype == torch.float32:
         return _bound(nbytes, 3 * flops, TF32_FLOP_PER_S)
     return _bound(nbytes, (3 if q.dtype == torch.float32 else 1) * flops, BF16_FLOP_PER_S)
+
+
+def scan_bound(x, n_state: int) -> tuple[float, str]:
+    """Least time (ms) of a selective scan over x (B, S, E): x, Δ and the
+    gate's input read once, B and C ((B, S, N) each) read once and y written
+    once, at the HBM rate (``orloj_bench/families/hymba.py``'s
+    ``scan_bytes``)."""
+    b, s, e = x.shape
+    return _bound(x.element_size() * (4 * b * s * e + 2 * b * s * n_state), 0.0)
 
 
 def rmsnorm_bound(x) -> tuple[float, str]:
@@ -553,8 +570,9 @@ def _randn(gen, shape, dtype):
 
 
 def phase_kernels_vs_plain() -> dict[str, float]:
-    """Every case of the four kernels against its plain version; returns the
-    error at each kernel's main-path shape (``arctic_*``: at Arctic's)."""
+    """Every case of the five forward kernels against its plain version;
+    returns the error at each kernel's main-path shape (``arctic_*``: at
+    Arctic's)."""
     import torch
 
     from repro_torch.kernels import decode_attention as dec
@@ -562,6 +580,7 @@ def phase_kernels_vs_plain() -> dict[str, float]:
     from repro_torch.kernels import moe_gating as gating
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as rms
+    from repro_torch.kernels import selective_scan as sc
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     f32, bf16 = torch.float32, torch.bfloat16
@@ -609,6 +628,13 @@ def phase_kernels_vs_plain() -> dict[str, float]:
         ("hymba (8,25->5,256,64) f32", 8, 25, 5, 256, 64, f32, None, 1024, 0.0),
         ("hymba window 1024 (1,25->5,2048,64) f32", 1, 25, 5, 2048, 64, f32, None, 1024, 0.0),
         ("hymba ring wrap (1,25->5,1100,64) lengths [1100] f32", 1, 25, 5, 1100, 64, f32, [1100], 1024, 0.0),
+        # Hymba-1.5B's 128 meta tokens, seen through every window (the
+        # flash kernel's prefix): its largest served batch, ragged rows, bf16
+        ("hymba prefix 128 window 1024 (4,25->5,2176,64) f32", 4, 25, 5, 2176, 64, f32, None, 1024, 0.0, 128),
+        ("hymba prefix 128 window 1024 (2,25->5,1300,64) lengths [1300,700] f32", 2, 25, 5, 1300, 64, f32,
+         [1300, 700], 1024, 0.0, 128),
+        ("prefix 16 window 48 (2,8->2,200,64) bf16", 2, 8, 2, 200, 64, bf16, None, 48, 0.0, 16),
+        ("prefix 40 window 32 hd 192 (1,4->2,160,192) f32", 1, 4, 2, 160, 192, f32, None, 32, 0.0, 40),
         ("internvl2 (8,14->2,256,64) f32", 8, 14, 2, 256, 64, f32, None, 0, 0.0),
         ("internvl2 prefix + tokens (2,14->2,320,64) f32", 2, 14, 2, 320, 64, f32, None, 0, 0.0),
         ("musicgen (8,32,256,64) bf16", 8, 32, 32, 256, 64, bf16, None, 0, 0.0),
@@ -631,13 +657,15 @@ def phase_kernels_vs_plain() -> dict[str, float]:
         ("wgmma smallest bucket (8,12,32,64) bf16", 8, 12, 12, 32, 64, bf16, None, 0, 0.0),
     ]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for name, b, h, kv, s, hd, dt, lens, window, cap in flash_cases:
+    for name, b, h, kv, s, hd, dt, lens, window, cap, *pre in flash_cases:
+        prefix = pre[0] if pre else 0
         q = _randn(gen, (b, h, s, hd), dt)
         k = _randn(gen, (b, kv, s, hd), dt)
         v = _randn(gen, (b, kv, s, hd), dt)
         lt = None if lens is None else torch.tensor(lens, dtype=torch.int32, device="cuda")
-        out = fa.flash_attention_cuda(q, k, v, lt, causal=True, window=window, softcap=cap)
-        want = ref.flash_attention_ref(q, k, v, lengths=lt, causal=True, window=window, softcap=cap)
+        out = fa.flash_attention_cuda(q, k, v, lt, causal=True, window=window, softcap=cap, prefix=prefix)
+        want = ref.flash_attention_ref(q, k, v, lengths=lt, causal=True, window=window, softcap=cap,
+                                       prefix=prefix)
         torch.cuda.synchronize()
         err, ok = _attention_ok(out, want)
         tol = BF16_TOL if dt == bf16 else F32_TOL
@@ -657,9 +685,10 @@ def phase_kernels_vs_plain() -> dict[str, float]:
             main_err["toy_flash_attention"] = err
         if name.startswith("nemotron (8,96->8,256,192) f32"):
             main_err["nemotron_flash_attention"] = err
-        for model, prefix in (("hymba", "hymba (8"), ("hymba_window", "hymba window 1024"),
-                              ("internvl2", "internvl2 (8"), ("musicgen", "musicgen (8")):
-            if name.startswith(prefix):
+        for model, start in (("hymba", "hymba (8"), ("hymba_window", "hymba window 1024"),
+                             ("hymba_prefix", "hymba prefix 128 window 1024 (4"),
+                             ("internvl2", "internvl2 (8"), ("musicgen", "musicgen (8")):
+            if name.startswith(start):
                 main_err[f"{model}_flash_attention"] = err
 
     decode_cases = [
@@ -838,9 +867,56 @@ def phase_kernels_vs_plain() -> dict[str, float]:
             failures.append(f"moe_gating {name}")
         if name.startswith("main path"):
             main_err["moe_gating"] = err
+
+    # The selective scan: y and the last state against the plain version
+    # (one position at a time) to F32_TOL, the state written only where
+    # asked and y the same bits either way.  Hymba-1.5B's served (k, 128 +
+    # bucket) at inner width 3200, the narrow preset's (8, 256) at 1600, a
+    # run cut in several and shapes off the tiles.
+    scan_cases = [
+        ("hymba_1_5b (4,2176,3200)", 4, 2176, 3200),
+        ("hymba_1_5b (1,2176,3200)", 1, 2176, 3200),
+        ("hymba_1_5b (8,384,3200)", 8, 384, 3200),
+        ("narrow preset (8,256,1600)", 8, 256, 1600),
+        ("S=1 (1,1,64)", 1, 1, 64),
+        ("ragged (2,37,96)", 2, 37, 96),
+        ("ragged (3,300,200)", 3, 300, 200),
+    ]
+    for name, b, s, e in scan_cases:
+        ins = _scan_inputs(gen, b, s, e)
+        y, h = sc.selective_scan_cuda(*ins, last_state=True)
+        y2, none = sc.selective_scan_cuda(*ins)
+        want_y, want_h = ref.selective_scan_ref(*ins)
+        torch.cuda.synchronize()
+        err = max((y - want_y).abs().max().item(), (h - want_h).abs().max().item())
+        ok = (torch.allclose(y, want_y, rtol=F32_TOL, atol=F32_TOL)
+              and torch.allclose(h, want_h, rtol=F32_TOL, atol=F32_TOL)
+              and torch.equal(y, y2) and none.numel() == 0)
+        log(f"kernel vs plain: selective_scan {name}: max_abs_err {err:.3e} (rtol = atol = {F32_TOL}) "
+            f"{'ok' if ok else 'FAIL'}; runs {sc.scan_plan(b, s, e, sms)}")
+        if not ok:
+            failures.append(f"selective_scan {name}")
+        if name.startswith("hymba_1_5b (4"):
+            main_err["selective_scan"] = err
+        if name.startswith("hymba_1_5b (1"):
+            main_err["b1_selective_scan"] = err
     if failures:
         raise SystemExit(f"kernels disagree with their plain versions: {failures}")
     return main_err
+
+
+def _scan_inputs(gen, b: int, s: int, e: int) -> tuple:
+    """A selective scan's inputs as the model makes them: x and the gate's
+    input N(0, 1), Δ = softplus(N(0, 1)/2 − 4) (about dt_bias's published
+    range), B and C N(0, 1), a_log = log(1..16) plus noise, D near 1."""
+    import torch
+
+    def n(*shape):
+        return _randn(gen, shape, torch.float32)
+
+    dt = torch.nn.functional.softplus(n(b, s, e) * 0.5 - 4.0)
+    a_log = torch.log(torch.arange(1, 17, dtype=torch.float32, device="cuda")) + 0.1 * n(e, 16)
+    return n(b, s, e), dt, n(b, s, 16), n(b, s, 16), n(b, s, e), a_log, 1.0 + 0.1 * n(e)
 
 
 # Backward kernels against autograd through the plain versions: relative
@@ -1360,19 +1436,22 @@ def _plain(name: str, args, kw):
     if name == "rmsnorm":
         x, scale = args
         return ref.rmsnorm_ref(x.reshape(-1, x.shape[-1]), scale, kw.get("eps", 1e-6)).reshape(x.shape)
+    if name == "selective_scan":
+        y, h = ref.selective_scan_ref(*args)
+        return y, (h if kw.get("last_state") else None)
     return ref.moe_gating_ref(*args, **kw)
 
 
 @contextlib.contextmanager
 def _kernel_log():
-    """Holds every call of the four kernels through ``repro_torch.kernels.ops``
+    """Holds every call of the five forward kernels through ``repro_torch.kernels.ops``
     against its plain version on the same inputs as the call returns (a
     decode cache is written before the call and again only by the next
     step), and records (name, shapes, types, max_abs_err, ok, and for bf16
     attention both errors against the plain version in float32) for
     :func:`_hold_path_calls`: attention as :func:`_attention_ok`; RMSNorm
     to ROW_TOL relative and absolute; the gating's ids exactly and its
-    gates to ROW_TOL.  Only the wrappers' routes are
+    gates to ROW_TOL; the selective scan's y and last state to F32_TOL.  Only the wrappers' routes are
     wrapped: the launches and their counts are the path's own; the plain
     versions launch none of the kernels.  A call inside a CUDA graph's
     capture runs nothing and is not held; the graph's replays make no call
@@ -1383,7 +1462,7 @@ def _kernel_log():
 
     seen: list = []
     wrapped = {name: getattr(ops, name) for name in ("flash_attention", "decode_attention",
-                                                      "rmsnorm", "moe_gating")}
+                                                      "rmsnorm", "moe_gating", "selective_scan")}
 
     def recorder(name, fn):
         def call(*args, **kw):
@@ -1401,6 +1480,10 @@ def _kernel_log():
             elif name == "rmsnorm":
                 err = (out.float() - want.float()).abs().max().item()
                 ok = bool(torch.isclose(out.float(), want.float(), rtol=ROW_TOL, atol=ROW_TOL).all())
+            elif name == "selective_scan":
+                pairs = [(a, b) for a, b in zip(out, want) if b is not None]
+                err = max((a - b).abs().max().item() for a, b in pairs)
+                ok = all(torch.allclose(a, b, rtol=F32_TOL, atol=F32_TOL) for a, b in pairs)
             else:
                 err, ok = _attention_ok(out, want)
                 if "bfloat16" in dtypes:  # both against the plain version in float32 on the same values
@@ -1860,10 +1943,11 @@ def _attention_entries(gen, b, h, kv, s, hd) -> tuple[dict, dict]:
     return flash, decode
 
 
-def _flash_entry(gen, b, h, kv, s, hd, dtype, window: int = 0) -> dict:
+def _flash_entry(gen, b, h, kv, s, hd, dtype, window: int = 0, prefix: int = 0) -> dict:
     """Flash's time, plain and SDPA times and bounds at one causal shape,
-    with a sliding window when ``window > 0`` (the bounds count only the
-    (query, key) pairs the window keeps; SDPA takes the same mask).
+    with a sliding window when ``window > 0`` and the keys below ``prefix``
+    seen through it (the bounds count only the (query, key) pairs the
+    masks keep; SDPA takes the same mask).
     ``bound_ms`` counts the operations at the peak rate of the inputs'
     type (float32: SIMT; bf16: the tensor cores), ``tc_bound_ms`` on the
     tensor cores."""
@@ -1879,22 +1963,22 @@ def _flash_entry(gen, b, h, kv, s, hd, dtype, window: int = 0) -> dict:
     mask = None
     if window > 0:
         i, j = torch.arange(s, device="cuda")[:, None], torch.arange(s, device="cuda")[None, :]
-        mask = (j <= i) & (j > i - window)
-    tc_bound, tc_by = flash_tc_bound(q, k, None, True, window)
+        mask = (j <= i) & ((j > i - window) | (j < prefix))
+    tc_bound, tc_by = flash_tc_bound(q, k, None, True, window, prefix)
     plan = fa.flash_plan(b, h, kv, s, hd, dtype, window, torch.cuda.get_device_properties(0).multi_processor_count)
     # The peak rate of the inputs' type: float32 outside the tensor cores, bf16 on them.
-    bound, by = (tc_bound, tc_by) if dtype == torch.bfloat16 else flash_bound(q, k, None, True, window)
+    bound, by = (tc_bound, tc_by) if dtype == torch.bfloat16 else flash_bound(q, k, None, True, window, prefix)
     e = {
-        "ms": time_ms(lambda: fa.flash_attention_cuda(q, k, v, window=window)),
-        "plain_ms": time_ms(lambda: ref.flash_attention_ref(q, k, v, window=window)),
+        "ms": time_ms(lambda: fa.flash_attention_cuda(q, k, v, window=window, prefix=prefix)),
+        "plain_ms": time_ms(lambda: ref.flash_attention_ref(q, k, v, window=window, prefix=prefix)),
         "bound_ms": bound, "bound_by": by,
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q, kr, vr, attn_mask=mask,
                                                                     is_causal=mask is None)),
-        "tc_bound_ms": tc_bound, "tc_bound_by": tc_by, "window": window,
+        "tc_bound_ms": tc_bound, "tc_bound_by": tc_by, "window": window, "prefix": prefix,
         "plan": {"route": plan.route, "warps": plan.warps, "heads": plan.heads, "positions": plan.positions,
                  "block_k": plan.block_k, "stages": plan.stages, "shared_bytes": plan.shared_bytes},
     }
-    log(f"flash ({b},{h}->{kv},{s},{hd}) {str(dtype)[6:]} window {window}, ratios in this call: "
+    log(f"flash ({b},{h}->{kv},{s},{hd}) {str(dtype)[6:]} window {window} prefix {prefix}, ratios in this call: "
         f"/SDPA {e['ms'] / e['library_ms']:.3f}, /plain {e['ms'] / e['plain_ms']:.3f}, "
         f"/tc_bound {e['ms'] / tc_bound:.3f} (tc_bound {tc_bound:.6f} ms, {tc_by}), "
         f"/bound {e['ms'] / bound:.3f} (bound {bound:.6f} ms, {by}); {e['ms']:.6f} ms; {_plan_text(plan)}")
@@ -2063,12 +2147,52 @@ def _backward_entries(gen, counts: dict[str, int], errs: dict[str, float]) -> li
     return [flash, rmsnorm, moe]
 
 
+def _scan_entry(gen, counts: dict[str, int], errs: dict[str, float]) -> dict:
+    """The selective scan's entry at Hymba-1.5B's largest served batch (4
+    rows of 128 meta tokens and the 2048 bucket, inner width 3200) and, under
+    ``b1``, at one row: its time by graph replay and its kernels' own
+    durations, the plain version's (one position at a time), the torch
+    doubling scan's that the card ran before the kernel (``torch_ms``), and
+    the byte bound."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import selective_scan as sc
+    from repro_torch.models import ssm
+
+    def measure(b: int) -> dict:
+        ins = _scan_inputs(gen, b, 2176, 3200)
+        bound, by = scan_bound(ins[0], 16)
+        kernel = lambda: sc.selective_scan_cuda(*ins)  # noqa: E731
+        own = own_ms_each(kernel, ("selective_scan_runs_kernel", "selective_scan_kernel"))
+        e = {"ms": time_ms(kernel, reps=5, graphs=3), "own_ms": sum(own.values()), "own_ms_each": own,
+             "plain_ms": time_ms(lambda: ref.selective_scan_ref(*ins), reps=1, graphs=1),
+             "torch_ms": time_ms(lambda: ssm._scan_torch(*ins, chunk=256), reps=1, graphs=1),
+             "bound_ms": bound, "bound_by": by, "runs": sc.scan_plan(b, 2176, 3200, sms)}
+        log(f"selective_scan ({b},2176,3200) f32: {e['ms']:.6f} ms (own {e['own_ms']:.6f} ms), /bound "
+            f"{e['ms'] / bound:.3f} (bound {bound:.6f} ms, {by}); plain {e['plain_ms']:.3f} ms, torch "
+            f"doubling scan {e['torch_ms']:.3f} ms (graph replays); runs {e['runs']}")
+        return e
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return {
+        "name": "selective_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/selective_scan.cu", "replaces": None,
+        "launches": counts["selective_scan"], "max_abs_err": errs["selective_scan"], **measure(4),
+        "library_ms": None,
+        "b1": {"max_abs_err": errs["b1_selective_scan"], **measure(1)},
+    }
+
+
 def phase_kernel_line(counts: dict[str, int], errs: dict[str, float]) -> dict:
     """One entry per kernel.  Flash and decode are timed at orloj_gpt's
     (8,12,256,64) as before, under ``arctic`` at Arctic's (8,56->8,256,128),
     under ``glm4`` at GLM-4's (8,32->2,256,128), under ``toy`` at the
-    engine-smoke toy's largest batch (4,4,32,16) and under ``nemotron`` at
-    Nemotron-4-340B's (8,96->8,256,192); decode also at the zoo's shapes,
+    engine-smoke toy's largest batch (4,4,32,16), under ``nemotron`` at
+    Nemotron-4-340B's (8,96->8,256,192) and flash under ``hymba_prefix`` at
+    Hymba-1.5B's largest served batch with its 128 meta tokens seen
+    through the window; the selective scan at Hymba-1.5B's served shapes
+    (:func:`_scan_entry`); decode also at the zoo's shapes,
     GLM-4's over its bf16 cache at 4,096 and 32,768 slots, Granite-34B's
     (4,48->1,4096,128) and DBRX's (8,48->8,256,128); RMSNorm at Arctic's
     (2048, 7168) and the gating at its (2048, 128) with k 2, and also at T
@@ -2099,6 +2223,8 @@ def phase_kernel_line(counts: dict[str, int], errs: dict[str, float]) -> dict:
                   **_flash_entry(gen, 8, 25, 5, 256, 64, torch.float32, 1024)},
         "hymba_window": {"max_abs_err": errs["hymba_window_flash_attention"],
                          **_flash_entry(gen, 1, 25, 5, 2048, 64, torch.float32, 1024)},
+        "hymba_prefix": {"max_abs_err": errs["hymba_prefix_flash_attention"],
+                         **_flash_entry(gen, 4, 25, 5, 2176, 64, torch.float32, 1024, prefix=128)},
         "internvl2": {"max_abs_err": errs["internvl2_flash_attention"],
                       **_flash_entry(gen, 8, 14, 2, 256, 64, torch.float32)},
         "musicgen": {"max_abs_err": errs["musicgen_flash_attention"],
@@ -2189,7 +2315,8 @@ def phase_kernel_line(counts: dict[str, int], errs: dict[str, float]) -> dict:
         "bound_ms": by_t[-1]["bound_ms"], "bound_by": by_t[-1]["bound_by"],
         "library_ms": None, "composite_ms": time_ms(composite), "by_T": by_t,
     }
-    entries = [flash, decode, rmsnorm, moe_gating, *_backward_entries(gen, counts, errs)]
+    entries = [flash, decode, rmsnorm, moe_gating, _scan_entry(gen, counts, errs),
+               *_backward_entries(gen, counts, errs)]
     for e in entries:  # the decode ≡ forward paths' own calls, held against the plain versions
         e["path_calls_held"], e["path_max_abs_err"] = PATH_HELD.get(e["name"], (0, None))
     return {"kernels": entries}
@@ -2350,11 +2477,12 @@ GEMM_NAMES = ("gemm", "Gemm", "GEMM", "cutlass", "xmma", "splitK")
 
 
 def _by_class(events) -> dict[str, float]:
-    """Device ms of a profile's operations by class: the flash and rmsnorm
-    kernels, cuBLAS/CUTLASS GEMMs, and everything else."""
-    out = {"gemm": 0.0, "flash_attention": 0.0, "rmsnorm": 0.0, "other": 0.0}
+    """Device ms of a profile's operations by class: the flash, rmsnorm and
+    selective-scan kernels, the GEMMs, and everything else."""
+    kernels = ("flash_attention", "rmsnorm", "selective_scan")
+    out = {"gemm": 0.0, **{k: 0.0 for k in kernels}, "other": 0.0}
     for e in events:
-        cls = next((k for k in ("flash_attention", "rmsnorm") if f"{k}_kernel" in e.key), None)
+        cls = next((k for k in kernels if k in e.key and "_kernel" in e.key), None)
         if cls is None:
             cls = "gemm" if any(n in e.key for n in GEMM_NAMES) else "other"
         out[cls] += e.device_time_total / 1e3
@@ -2363,13 +2491,15 @@ def _by_class(events) -> dict[str, float]:
 
 def phase_hymba_prefill(engine) -> None:
     """Where Hymba's (8, 256) prefill spends the card's time: the profile by
-    class (GEMMs, flash, rmsnorm, the rest), one layer's Mamba branch alone
-    and its chunk scan alone (the forward runs 32 of each), and the
-    prefill's peak memory above the weights (an eager forward's: a replay
-    runs in its graph's memory pool, held since the capture)."""
+    class (GEMMs, flash, rmsnorm, the selective scan, the rest), one layer's
+    Mamba branch alone and its selective-scan kernel alone (the forward runs
+    32 of each), and the prefill's peak memory above the weights (an eager
+    forward's: a replay runs in its graph's memory pool, held since the
+    capture)."""
     import numpy as np
     import torch
 
+    from repro_torch.kernels import ops
     from repro_torch.models import ssm
 
     cfg = engine.model.cfg
@@ -2388,21 +2518,19 @@ def phase_hymba_prefill(engine) -> None:
     gen = torch.Generator(device="cuda").manual_seed(4)
     h = _randn(gen, (8, 256, cfg.d_model), torch.float32)
     mp = engine.params["blocks"][0]["mamba"]
+    ins = _scan_inputs(gen, 8, 256, mp["in_x"].shape[1])
     with torch.no_grad():
         branch = sum(e.device_time_total for e in _profile(
             lambda: ssm.mamba_apply(mp, h, cfg.mlstm_chunk), "hymba",
             f"one layer's Mamba branch (8,256,{cfg.d_model})"))
-        a = torch.rand((8, 256, cfg.d_model, cfg.ssm_state), generator=gen, device="cuda")
-        b = _randn(gen, (8, 256, cfg.d_model, cfg.ssm_state), torch.float32)
-        h0 = torch.zeros((8, cfg.d_model, cfg.ssm_state), device="cuda")
         scan = sum(e.device_time_total for e in _profile(
-            lambda: ssm._mamba_scan(a, b, h0, cfg.mlstm_chunk), "hymba",
-            f"one layer's chunk scan (8,256,{cfg.d_model},{cfg.ssm_state})"))
-    del a, b, h, h0
+            lambda: ops.selective_scan(*ins), "hymba",
+            f"one layer's selective scan (8,256,{ins[0].shape[2]},{cfg.ssm_state})"))
+    del h, ins
     log(f"hymba where the time goes: prefill (8,256) device ms by class: "
         + ", ".join(f"{k} {v:.4f}" for k, v in classes.items())
         + f"; one layer's Mamba branch {branch / 1e3:.4f} ms (x{cfg.n_layers} = "
-        f"{cfg.n_layers * branch / 1e3:.4f}), of which its chunk scan {scan / 1e3:.4f} ms "
+        f"{cfg.n_layers * branch / 1e3:.4f}), of which its selective scan {scan / 1e3:.4f} ms "
         f"(x{cfg.n_layers} = {cfg.n_layers * scan / 1e3:.4f})")
 
 
@@ -2429,7 +2557,7 @@ def run_hymba(ecfg) -> list[dict[str, int]]:
         f"vocab {CONFIG.vocab_size}; {engine.model.param_count(engine.params)} params, "
         f"{_nbytes(engine.params)} bytes of float32 weights; peak {torch.cuda.max_memory_allocated()} "
         f"bytes after init (built in {time.perf_counter() - t0:.1f} s)")
-    windows = [phase_serve(engine, ecfg, "hymba", ("rmsnorm", "flash_attention"))]
+    windows = [phase_serve(engine, ecfg, "hymba", ("rmsnorm", "flash_attention", "selective_scan"))]
     log(f"hymba: peak {torch.cuda.max_memory_allocated()} bytes after serving")
     phase_graphs(engine, "hymba", GRAPH_SHAPES)
     windows.append(phase_tokens(engine, "hymba"))

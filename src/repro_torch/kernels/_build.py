@@ -37,10 +37,11 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 # The four forwards, each the counterpart of a Pallas TPU kernel, the
-# backwards of the three that training differentiates through, and the
-# float32 GEMM of the models' weight products (no TPU counterpart).
+# backwards of the three that training differentiates through, the
+# float32 GEMM of the models' weight products and Mamba's selective scan
+# (neither has a TPU counterpart).
 KERNELS = ("flash_attention", "decode_attention", "rmsnorm", "moe_gating",
-           "flash_attention_bwd", "rmsnorm_bwd", "moe_gating_bwd", "gemm")
+           "flash_attention_bwd", "rmsnorm_bwd", "moe_gating_bwd", "gemm", "selective_scan")
 # --split-compile=0 runs the device optimisations of one source on every
 # core: the attention sources instantiate 22 and 121 kernels (head sizes
 # 16 to 512, both softcap flags), and split they build in about half the time.

@@ -1,6 +1,8 @@
 // Flash attention (prefill) for Hopper (sm_90a): causal or full attention
 // per (batch row, query head) with grouped-query KV heads, a per-row
-// `lengths` mask and an optional sliding window.
+// `lengths` mask and an optional sliding window, whose first `prefix` keys
+// every query sees (Hymba's meta tokens: a query at i sees key j where
+// j > i − window or j < prefix).
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py, function
 // flash_attention_pallas (body `_kernel`).  That kernel carried the
@@ -56,9 +58,10 @@
 //   wgmma takes K-major operands only).  Inside each 8-key group Vᵀ holds
 //   keys 0, 2, 4, 6, 1, 3, 5, 7, so that the score accumulators are the
 //   TF32 A fragment of P as they stand, with no shuffles.
-// Masks go row by row on the position (causal, window, `lengths`, the
-// ragged tail of S); key tiles that no row of the block can see are never
-// loaded, and a warpgroup skips the tiles no row of its slab can see
+// Masks go row by row on the position (causal, window and prefix,
+// `lengths`, the ragged tail of S); a block walks the tiles that hold the
+// prefix, then those of its window, and key tiles that no row of the
+// block can see are never loaded, and a warpgroup skips the tiles no row of its slab can see
 // (every wgmma is issued unconditionally within a tile: one under a branch
 // is serialized); blocks are launched heaviest query tile first.  The
 // order of accumulation is fixed and there are no atomics: two calls give
@@ -134,7 +137,7 @@ __global__ void __launch_bounds__(32 * WARPS)
                            T* __restrict__ out,              // (B, H, S, HD), contiguous
                            float* __restrict__ lse,          // (B, H, S) or null: not written
                            int H, int KV, int S, Strides sq, Strides sk, Strides sv, int causal,
-                           int window, float sm_scale, float softcap) {
+                           int window, int prefix, float sm_scale, float softcap) {
   using L = Tile<T, HD, BK>;
   constexpr int BQ = 16 * WARPS;
   constexpr int NT = L::kNT;
@@ -170,12 +173,15 @@ __global__ void __launch_bounds__(32 * WARPS)
   if (window > 0) k_begin = max(0, q0 - window + 1) / BK * BK;
   int warp_end = causal ? min(k_end, wq0 + 16) : k_end;
   if (wq0 >= S) warp_end = 0;
-  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
+  // The prefix's tiles below the window's first, walked first.
+  const int n_pre = window > 0 && prefix > 0 ? min((prefix + BK - 1) / BK, k_begin / BK) : 0;
+  const int n_tiles = n_pre + (k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0);
+  const auto tile_k0 = [&](int it) { return it < n_pre ? it * BK : k_begin + (it - n_pre) * BK; };
 
   load_rows<T, HD>(q_s, L::kQS, qb, sq.s, q0, BQ, S, tid, kThreads);
   if (n_tiles > 0) {
-    load_rows<T, HD>(k_s, L::kKS, kb, sk.s, k_begin, BK, S, tid, kThreads);
-    load_rows<T, HD>(v_s, L::kVS, vb, sv.s, k_begin, BK, S, tid, kThreads);
+    load_rows<T, HD>(k_s, L::kKS, kb, sk.s, tile_k0(0), BK, S, tid, kThreads);
+    load_rows<T, HD>(v_s, L::kVS, vb, sv.s, tile_k0(0), BK, S, tid, kThreads);
   }
   cp_async_commit();
 
@@ -197,11 +203,12 @@ __global__ void __launch_bounds__(32 * WARPS)
   const T* qw = q_s + warp * 16 * L::kQS;
 
   for (int it = 0; it < n_tiles; ++it) {
-    const int k0 = k_begin + it * BK;
+    const int k0 = tile_k0(it);
     if (it + 1 < n_tiles) {
       const int st = (it + 1) % kStages;
-      load_rows<T, HD>(k_s + st * BK * L::kKS, L::kKS, kb, sk.s, k0 + BK, BK, S, tid, kThreads);
-      load_rows<T, HD>(v_s + st * BK * L::kVS, L::kVS, vb, sv.s, k0 + BK, BK, S, tid, kThreads);
+      const int k1 = tile_k0(it + 1);
+      load_rows<T, HD>(k_s + st * BK * L::kKS, L::kKS, kb, sk.s, k1, BK, S, tid, kThreads);
+      load_rows<T, HD>(v_s + st * BK * L::kVS, L::kVS, vb, sv.s, k1, BK, S, tid, kThreads);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -262,7 +269,7 @@ __global__ void __launch_bounds__(32 * WARPS)
             const int kpos = k0 + n * 8 + 2 * t + (e & 1);
             bool ok = n < nt_lim && kpos < k_end;
             if (causal) ok = ok && kpos <= qpos[r];
-            if (window > 0) ok = ok && kpos > qpos[r] - window;
+            if (window > 0) ok = ok && (kpos > qpos[r] - window || kpos < prefix);
             s[n][e] = ok ? to_log2(s[n][e]) : kNegInf;
             mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
           }
@@ -458,7 +465,7 @@ __global__ void __launch_bounds__(128 * kMaxWarpgroups + Hop<T, HD>::kProducerTh
                                  T* __restrict__ out,              // (B, H, S, HD), contiguous
                                  float* __restrict__ lse,          // (B, H, S) or null
                                  int H, int S, int group, int heads, int positions, int wgs,
-                                 int stages, int causal, int window, float sm_scale,
+                                 int stages, int causal, int window, int prefix, float sm_scale,
                                  float softcap) {
   using L = Hop<T, HD>;
   constexpr int BK = L::kBlockK;
@@ -491,7 +498,10 @@ __global__ void __launch_bounds__(128 * kMaxWarpgroups + Hop<T, HD>::kProducerTh
   if (lengths != nullptr) len_end = __shfl_sync(0xffffffffu, min(len_end, max(lengths[b], 0)), 0);
   const int k_end = causal ? min(len_end, min(q0 + positions, S)) : len_end;
   const int k_begin = window > 0 ? max(0, q0 - window + 1) / BK * BK : 0;
-  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
+  // The prefix's tiles below the window's first, walked first.
+  const int n_pre = window > 0 && prefix > 0 ? min((prefix + BK - 1) / BK, k_begin / BK) : 0;
+  const int n_tiles = n_pre + (k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0);
+  const auto tile_k0 = [&](int it) { return it < n_pre ? it * BK : k_begin + (it - n_pre) * BK; };
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -526,7 +536,7 @@ __global__ void __launch_bounds__(128 * kMaxWarpgroups + Hop<T, HD>::kProducerTh
         const uint32_t full = full0 + 8 * st;
         mbar_expect_tx(full, 2 * L::kTileBytes);
         uint8_t* ks = stage0 + st * L::kStageBytes;
-        const int k0 = k_begin + it * BK;
+        const int k0 = tile_k0(it);
 #pragma unroll
         for (int c = 0; c < L::kChunks; ++c) {
           tma_load_4d(smem_addr(ks + c * BK * CB), &map_k, full, c * L::kChunkElems, k0, kvh, b);
@@ -587,10 +597,16 @@ __global__ void __launch_bounds__(128 * kMaxWarpgroups + Hop<T, HD>::kProducerTh
   const int min_pos = q0 + p_lo, max_pos = min(q0 + p_hi, S - 1);
   const int slab_end = causal ? min(len_end, max_pos + 1) : len_end;
   const int slab_begin = window > 0 ? max(0, min_pos - window + 1) : 0;
+  // With a prefix the slab walks every tile from the first up to its
+  // window's last: the prefix's, and the few of the block's window that
+  // its rows cannot see, all masked.
   int lo = n_tiles, hi = n_tiles;
   if (slab_on && slab_end > k_begin) {
-    lo = min(n_tiles, (slab_begin - k_begin) / BK);
-    hi = min(n_tiles, (slab_end - k_begin + BK - 1) / BK);
+    lo = n_pre > 0 ? 0 : min(n_tiles, (slab_begin - k_begin) / BK);
+    hi = min(n_tiles, n_pre + (slab_end - k_begin + BK - 1) / BK);
+  } else if (slab_on && n_pre > 0) {
+    lo = 0;
+    hi = n_pre;
   }
 
   const auto wait_tile = [&](int it) { mbar_wait(ready0 + 8 * (it % stages), (it / stages) & 1); };
@@ -689,7 +705,7 @@ __global__ void __launch_bounds__(128 * kMaxWarpgroups + Hop<T, HD>::kProducerTh
   // s[4n + {2, 3}].  Leaves the probabilities in s and returns the factor
   // the output's rows take.
   const auto softmax = [&](int it, float(&s)[BK / 2], float(&alpha)[2]) {
-    const int k0 = k_begin + it * BK;
+    const int k0 = tile_k0(it);
     float mx[2] = {-INFINITY, -INFINITY};
     // A tile that no mask reaches for any row of the slab takes no per-key
     // test (the flag as lane 0 has it: uniform across the warp).
@@ -704,7 +720,7 @@ __global__ void __launch_bounds__(128 * kMaxWarpgroups + Hop<T, HD>::kProducerTh
         const int kpos = k0 + (i >> 2) * 8 + 2 * t + (i & 1);
         bool ok = row_ok[r] && kpos < len_end;
         if (causal) ok = ok && kpos <= qpos[r];
-        if (window > 0) ok = ok && kpos > qpos[r] - window;
+        if (window > 0) ok = ok && (kpos > qpos[r] - window || kpos < prefix);
         s[i] = ok ? cap(s[i]) : -INFINITY;
         mx[r] = fmaxf(mx[r], s[i]);
       }
@@ -894,7 +910,7 @@ struct Args {
   float* lse;
   int B, H, KV, S;
   Strides sq, sk, sv;
-  int causal, window;
+  int causal, window, prefix;
   float softcap;
   cudaStream_t stream;
 };
@@ -915,7 +931,7 @@ cudaError_t launch_mma_sync(const Args& a) {
   flash_attention_kernel<T, HD, WARPS, BK, SOFTCAP><<<grid, 32 * WARPS, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       a.lengths, static_cast<T*>(a.out), a.lse, a.H, a.KV, a.S, a.sq, a.sk, a.sv, a.causal, a.window,
-      1.f / std::sqrt(static_cast<float>(HD)), a.softcap);
+      a.prefix, 1.f / std::sqrt(static_cast<float>(HD)), a.softcap);
   return cudaGetLastError();
 }
 
@@ -990,7 +1006,7 @@ cudaError_t launch_wgmma(const Args& a, const Plan& p) {
   const dim3 grid(a.KV * (group / p.heads), a.B, (a.S + p.positions - 1) / p.positions);
   kernel<<<grid, 128 * p.warps + L::kProducerThreads, static_cast<size_t>(p.shared_bytes), a.stream>>>(
       mq, mk, mv, mo, a.lengths, static_cast<T*>(a.out), a.lse, a.H, a.S, group, p.heads, p.positions, p.warps, p.stages,
-      a.causal, a.window, 1.f / std::sqrt(static_cast<float>(HD)), a.softcap);
+      a.causal, a.window, a.prefix, 1.f / std::sqrt(static_cast<float>(HD)), a.softcap);
   return cudaGetLastError();
 }
 
@@ -1038,7 +1054,8 @@ cudaError_t dispatch_softcap(int hd, const Args& a, const Plan& p) {
 // (B,) int32 or null (every row has S keys); out: (B, H, S, hd),
 // contiguous; lse: (B, H, S) float32, contiguous, or null (the serving
 // path: not written), the log-sum-exp of each row's scores that the
-// backward reads.  hd must be 16, 32, 64, 128 or 192; softcap > 0 caps the
+// backward reads.  With window > 0 every query also sees the keys below
+// `prefix` (>= 0; 0: none).  hd must be 16, 32, 64, 128 or 192; softcap > 0 caps the
 // scaled scores at ±softcap (tanh), 0 leaves them.  The plan
 // (flash_attention.py's flash_plan): route (0 mma.sync, 1 wgmma), warps
 // (mma.sync: warps a block; wgmma: consumer warpgroups), heads and
@@ -1051,14 +1068,14 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
                                       int B, int H, int KV, int S, int hd, long long sqb,
                                       long long sqh, long long sqs, long long skb, long long skh,
                                       long long sks, long long svb, long long svh,
-                                      long long svs, int causal, int window, float softcap,
+                                      long long svs, int causal, int window, int prefix, float softcap,
                                       int route, int warps, int heads, int positions, int block_k,
                                       int stages, long long shared_bytes, void* stream) {
   using namespace repro_torch;
-  if (B <= 0 || KV <= 0 || H % KV != 0 || S <= 0 || !(softcap >= 0.f))
+  if (B <= 0 || KV <= 0 || H % KV != 0 || S <= 0 || prefix < 0 || !(softcap >= 0.f))
     return cudaErrorInvalidValue;
   const Args a{q, k, v, lengths, out, lse, B, H, KV, S, Strides{sqb, sqh, sqs}, Strides{skb, skh, sks},
-               Strides{svb, svh, svs}, causal, window, softcap, static_cast<cudaStream_t>(stream)};
+               Strides{svb, svh, svs}, causal, window, prefix, softcap, static_cast<cudaStream_t>(stream)};
   const Plan p{route, warps, heads, positions, block_k, stages, shared_bytes};
   if (dtype == kFloat32) return dispatch_softcap<float>(hd, a, p);
   if (dtype == kBFloat16) return dispatch_softcap<__nv_bfloat16>(hd, a, p);

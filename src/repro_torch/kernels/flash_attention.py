@@ -171,7 +171,7 @@ _c_ptr = ctypes.c_void_p
 @functools.cache
 def _entry():
     fn = _build.load("flash_attention").flash_attention_launch
-    fn.argtypes = ([_c_ptr] * 6 + [_c_int] * 6 + [_c_ll] * 9 + [_c_int, _c_int, ctypes.c_float]
+    fn.argtypes = ([_c_ptr] * 6 + [_c_int] * 6 + [_c_ll] * 9 + [_c_int, _c_int, _c_int, ctypes.c_float]
                    + [_c_int] * 6 + [_c_ll, _c_ptr])
     fn.restype = _c_int
     return fn
@@ -185,7 +185,7 @@ def _backward_entry():
     return fn
 
 
-def check_inputs(q, k, v, lengths, softcap: float = 0.0) -> None:
+def check_inputs(q, k, v, lengths, softcap: float = 0.0, prefix: int = 0) -> None:
     """Raise on input the kernel does not take (any device)."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be (B, H, S, hd) and (B, KV, S, hd)")
@@ -212,6 +212,8 @@ def check_inputs(q, k, v, lengths, softcap: float = 0.0) -> None:
             raise ValueError("lengths must be a contiguous (B,) int32 tensor")
     if not softcap >= 0:
         raise ValueError(f"softcap must be >= 0 (0: none), got {softcap}")
+    if prefix < 0:
+        raise ValueError(f"prefix must be >= 0 (0: none), got {prefix}")
 
 
 def flash_attention_cuda(
@@ -224,14 +226,16 @@ def flash_attention_cuda(
     window: int = 0,
     softcap: float = 0.0,
     return_lse: bool = False,
+    prefix: int = 0,
 ) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
     """q: (B, H, S, hd); k, v: (B, KV, S, hd) on one CUDA device → (B, H, S, hd)
     in q's dtype.  Keys at or past ``lengths[b]`` are masked (``None``: all S);
+    with a ``window``, the keys below ``prefix`` stay visible to every query;
     ``softcap > 0`` caps the scaled scores (tanh(s / cap) · cap) before the masks.
     With ``return_lse`` also each row's log-sum-exp of its scores, (B, H, S)
     float32, -inf for a row with no valid key: what the backward reads."""
     global launches
-    check_inputs(q, k, v, lengths, softcap)
+    check_inputs(q, k, v, lengths, softcap, prefix)
     _build.refuse_autograd("flash_attention", q, k, v)
     _check_device(q, k, v, lengths)
     b, h, s, hd = q.shape
@@ -247,7 +251,7 @@ def flash_attention_cuda(
             out.data_ptr(), lse.data_ptr() if lse is not None else None,
             DTYPES[q.dtype], b, h, k.shape[1], s, hd,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            int(causal), int(window), float(softcap),
+            int(causal), int(window), int(prefix), float(softcap),
             ROUTES[plan.route], plan.warps, plan.heads, plan.positions, plan.block_k, plan.stages,
             plan.shared_bytes, stream,
         )

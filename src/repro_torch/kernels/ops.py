@@ -58,6 +58,7 @@ from . import gemm as _gemm
 from . import moe_gating as _gating
 from . import ref
 from . import rmsnorm as _rmsnorm
+from . import selective_scan as _scan
 
 # Each kernel's launch counter: (module, attribute), by the name of its
 # library (``_build.KERNELS``).
@@ -70,6 +71,7 @@ _COUNTERS = {
     "rmsnorm_bwd": (_rmsnorm, "backward_launches"),
     "moe_gating_bwd": (_gating, "backward_launches"),
     "gemm": (_gemm, "launches"),
+    "selective_scan": (_scan, "launches"),
 }
 
 
@@ -91,17 +93,17 @@ def _empty(shape, like: Tensor, dtype: torch.dtype | None = None) -> Tensor:
 # ------------------------------------------------------- flash attention
 @torch.library.custom_op("repro_torch::flash_attention", mutates_args=(), device_types="cuda")
 def _flash_op(q: Tensor, k: Tensor, v: Tensor, lengths: Tensor | None, causal: bool,
-              window: int, softcap: float, need_lse: bool) -> tuple[Tensor, Tensor]:
+              window: int, softcap: float, need_lse: bool, prefix: int = 0) -> tuple[Tensor, Tensor]:
     if need_lse:
         return _flash.flash_attention_cuda(q, k, v, lengths, causal=causal, window=window,
-                                           softcap=softcap, return_lse=True)
+                                           softcap=softcap, return_lse=True, prefix=prefix)
     out = _flash.flash_attention_cuda(q, k, v, lengths, causal=causal, window=window,
-                                      softcap=softcap)
+                                      softcap=softcap, prefix=prefix)
     return out, _empty(q.shape[:2] + (0,), q, torch.float32)
 
 
 @_flash_op.register_fake
-def _(q, k, v, lengths, causal, window, softcap, need_lse):
+def _(q, k, v, lengths, causal, window, softcap, need_lse, prefix=0):
     b, h, s, _ = q.shape
     return _empty(q.shape, q), _empty((b, h, s if need_lse else 0), q, torch.float32)
 
@@ -120,17 +122,20 @@ def _(q, k, v, out, dout, lse, lengths, causal, window, softcap):
 
 
 def _flash_setup(ctx, inputs, output):
-    q, k, v, lengths, causal, window, softcap, _ = inputs
+    q, k, v, lengths, causal, window, softcap, _, prefix = inputs
     out, lse = output
     ctx.save_for_backward(q, k, v, out, lse, lengths)
     ctx.opts = (causal, window, softcap)
+    ctx.prefix = prefix
 
 
 def _flash_backward(ctx, dout, dlse):
     del dlse
+    if ctx.prefix:
+        raise NotImplementedError("the flash backward kernel takes no prefix")
     q, k, v, out, lse, lengths = ctx.saved_tensors
     dq, dk, dv = _flash_bwd_op(q, k, v, out, dout, lse, lengths, *ctx.opts)
-    return dq, dk, dv, None, None, None, None, None
+    return dq, dk, dv, None, None, None, None, None, None
 
 
 _flash_op.register_autograd(_flash_backward, setup_context=_flash_setup)
@@ -241,6 +246,19 @@ def _(x, w):
     return _empty((x.shape[0], w.shape[1]), x)
 
 
+# ------------------------------------------------------- selective scan
+@torch.library.custom_op("repro_torch::selective_scan", mutates_args=(), device_types="cuda")
+def _scan_op(x: Tensor, dt: Tensor, bm: Tensor, cm: Tensor, z: Tensor, a_log: Tensor,
+             d_skip: Tensor, last_state: bool) -> tuple[Tensor, Tensor]:
+    return _scan.selective_scan_cuda(x, dt, bm, cm, z, a_log, d_skip, last_state=last_state)
+
+
+@_scan_op.register_fake
+def _(x, dt, bm, cm, z, a_log, d_skip, last_state):
+    b, _, e = x.shape
+    return _empty(x.shape, x), _empty((b, e, a_log.shape[1]) if last_state else (0,), x)
+
+
 # ------------------------------------------------------------ the FLOPs
 def _lengths_or_full(lengths, b: int, s: int) -> np.ndarray:
     """Each row's length: its value where ``lengths`` holds data, ``s`` for
@@ -252,26 +270,30 @@ def _lengths_or_full(lengths, b: int, s: int) -> np.ndarray:
     return np.clip(lengths.detach().cpu().numpy().astype(np.int64), 0, s)
 
 
-def flash_pairs(s: int, causal: bool, window: int, lengths) -> np.ndarray:
-    """The (query, key) pairs that the causal mask, the window and each
-    row's length keep, for each row of the batch: key j < length and, for
-    query i, j <= i when causal and j > i - window when windowed."""
+def flash_pairs(s: int, causal: bool, window: int, lengths, prefix: int = 0) -> np.ndarray:
+    """The (query, key) pairs that the causal mask, the window (with the
+    keys below ``prefix`` seen by every query) and each row's length keep,
+    for each row of the batch: key j < length and, for query i, j <= i when
+    causal and j > i - window or j < prefix when windowed."""
     i = np.arange(s)
     hi = i if causal else np.full(s, s - 1)
     lo = np.maximum(i - window + 1, 0) if window > 0 else np.zeros(s, dtype=np.int64)
-    return np.array([np.maximum(np.minimum(hi, n - 1) - lo + 1, 0).sum() for n in lengths])
+    pre = np.minimum(lo, prefix) if window > 0 else np.zeros(s, dtype=np.int64)
+    return np.array([(np.maximum(np.minimum(hi, n - 1) - lo + 1, 0)
+                      + np.maximum(np.minimum(np.minimum(pre, n), hi + 1), 0)).sum() for n in lengths])
 
 
-def flash_flops(q, k, lengths, causal: bool, window: int) -> int:
+def flash_flops(q, k, lengths, causal: bool, window: int, prefix: int = 0) -> int:
     """The forward's FLOPs: q·k and p·v, 2·hd each, per kept pair and
     query head."""
     b, h, s, hd = q.shape
-    return int(4 * hd * h * flash_pairs(s, causal, window, _lengths_or_full(lengths, b, s)).sum())
+    pairs = flash_pairs(s, causal, window, _lengths_or_full(lengths, b, s), prefix)
+    return int(4 * hd * h * pairs.sum())
 
 
 @register_flop_formula(torch.ops.repro_torch.flash_attention, get_raw=True)
-def _flash_flop(q, k, v, lengths, causal, window, softcap, need_lse, out_val=None, **_):
-    return flash_flops(q, k, lengths, causal, window)
+def _flash_flop(q, k, v, lengths, causal, window, softcap, need_lse, prefix=0, out_val=None, **_):
+    return flash_flops(q, k, lengths, causal, window, prefix)
 
 
 @register_flop_formula(torch.ops.repro_torch.flash_attention_bwd, get_raw=True)
@@ -359,8 +381,8 @@ def _register_rules() -> None:
         return None if t is None else p
 
     @rule(torch.ops.repro_torch.flash_attention.default)
-    def _(q, k, v, lengths, causal, window, softcap, need_lse):
-        rest = [None] * 4
+    def _(q, k, v, lengths, causal, window, softcap, need_lse, prefix=0):
+        rest = [None] * 5
         return [
             ([R, R], [R, R, R, opt(lengths, R), *rest]),
             ([Shard(0), Shard(0)], [Shard(0)] * 3 + [opt(lengths, Shard(0)), *rest]),
@@ -418,16 +440,18 @@ def flash_attention(
     causal: bool = True,
     window: int = 0,
     softcap: float = 0.0,
+    prefix: int = 0,
 ) -> torch.Tensor:
     """q: (B, H, S, hd); k, v: (B, KV, S, hd); lengths: (B,) int32 or None
-    (every row has S keys); ``softcap > 0`` caps the scaled scores."""
+    (every row has S keys); ``softcap > 0`` caps the scaled scores; with a
+    ``window``, the keys below ``prefix`` stay visible to every query."""
     if _route(q) == "cpu":
         return ref.flash_attention_ref(
-            q, k, v, causal=causal, lengths=lengths, window=window, softcap=softcap
+            q, k, v, causal=causal, lengths=lengths, window=window, softcap=softcap, prefix=prefix
         )
     _register_rules()
     out, _ = _flash_op(q, k, v, lengths, causal, int(window), float(softcap),
-                       _build.needs_grad(q, k, v))
+                       _build.needs_grad(q, k, v), int(prefix))
     return out
 
 
@@ -465,6 +489,20 @@ def moe_gating(logits: torch.Tensor, top_k: int) -> tuple[torch.Tensor, torch.Te
         return ref.moe_gating_ref(logits, top_k)
     _register_rules()
     return _gating_op(logits.contiguous(), int(top_k))
+
+
+def selective_scan(x, dt, bm, cm, z, a_log, d_skip, *, last_state: bool = False):
+    """Mamba's scan from h = 0: x, dt, z (B, S, E); bm, cm (B, S, N);
+    a_log (E, N); d_skip (E,) → (y (B, S, E), the state after the last
+    position (B, E, N) float32, or None without ``last_state``).  A CPU
+    tensor takes the plain version; a CUDA tensor the kernel, which refuses
+    what it does not take (:func:`.selective_scan.check_inputs`) and a
+    gradient."""
+    if _route(x) == "cpu":
+        y, h = ref.selective_scan_ref(x, dt, bm, cm, z, a_log, d_skip)
+        return y, (h if last_state else None)
+    y, h = _scan_op(x, dt, bm, cm, z, a_log, d_skip, bool(last_state))
+    return y, (h if last_state else None)
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

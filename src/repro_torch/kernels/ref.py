@@ -24,8 +24,10 @@ def flash_attention_ref(
     lengths: torch.Tensor | None = None,
     window: int = 0,
     softcap: float = 0.0,
+    prefix: int = 0,
 ) -> torch.Tensor:
-    """q: (B, H, S, hd); k, v: (B, KV, S, hd) → (B, H, S, hd)."""
+    """q: (B, H, S, hd); k, v: (B, KV, S, hd) → (B, H, S, hd).  With a
+    window, the keys below ``prefix`` stay visible to every query."""
     b, h, s, hd = q.shape
     kv = k.shape[1]
     qg = q.reshape(b, kv, h // kv, s, hd)
@@ -36,7 +38,7 @@ def flash_attention_ref(
     if causal:
         mask &= j <= i
     if window > 0:
-        mask &= j > i - window
+        mask &= (j > i - window) | (j < prefix)
     mask = mask[None].expand(b, s, s)
     if lengths is not None:
         mask = mask & (j[None] < lengths.to(q.device)[:, None, None])
@@ -78,6 +80,23 @@ def decode_attention_ref(
 
 def _cap(scores: torch.Tensor, softcap: float) -> torch.Tensor:
     return torch.tanh(scores / softcap) * softcap if softcap > 0 else scores
+
+
+def selective_scan_ref(x, dt, bm, cm, z, a_log, d_skip):
+    """Mamba's scan one position at a time, float32: h_t = exp(−exp(a_log)·Δ_t)·h_{t−1}
+    + Δ_t·x_t·B_t from h = 0, y_t = (C_t·h_t + D·x_t)·silu(z_t).  x, dt, z:
+    (B, S, E); bm, cm: (B, S, N); a_log: (E, N); d_skip: (E,) → (y (B, S,
+    E), the last state (B, E, N))."""
+    b, s, e = x.shape
+    a = -torch.exp(a_log.float())
+    h = torch.zeros((b, e, a.shape[1]), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(s):
+        dv, xv = dt[:, t].float(), x[:, t].float()
+        h = torch.exp(a * dv[..., None]) * h + (dv * xv)[..., None] * bm[:, t, None, :].float()
+        ys.append((h * cm[:, t, None, :].float()).sum(-1) + d_skip.float() * xv)
+    y = torch.stack(ys, 1) * torch.nn.functional.silu(z.float())
+    return y.to(x.dtype), h
 
 
 def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

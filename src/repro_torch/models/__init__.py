@@ -2,6 +2,7 @@
 path, in PyTorch, with the reference's parameter layouts."""
 
 from .config import ModelConfig
+from .hymba import HymbaConfig
 from .model import Model
 
-__all__ = ["ModelConfig", "Model"]
+__all__ = ["ModelConfig", "HymbaConfig", "Model"]

@@ -6,7 +6,14 @@ sequence (``block_apply``) and for one decode step (``init_block_cache``,
 ``block_decode``).
 
 A block's cache holds what its kind needs: ``{"kv": …}`` for attention,
-``{"kv": …, "mamba": …}`` for Hymba, ``{"cell": …}`` for xLSTM's cells."""
+``{"kv": …, "mamba": …}`` for Hymba, ``{"cell": …}`` for xLSTM's cells.
+
+Hymba's options beyond the reference's block (:mod:`.hymba`: a window
+a layer, the meta tokens seen through every window, K/V shared by a pair
+of layers, a wider Mamba) are read through :func:`.hymba.options`, whose
+defaults are every other configuration's layout.  A layer that reuses K/V
+has no ``wk``/``wv`` and no K/V cache of its own: the model hands it its
+partner's."""
 
 from __future__ import annotations
 
@@ -14,6 +21,7 @@ from typing import Any
 
 import torch
 
+from . import hymba
 from . import moe as moe_lib
 from . import ssm
 from .config import ModelConfig
@@ -53,7 +61,10 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, layer_idx: int) -> Params
         return p
     p["attn"] = init_attention(gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim)
     if kind == "hymba":
-        p["mamba"] = ssm.init_mamba(gen, d, cfg.ssm_state)
+        hy = hymba.options(cfg)
+        if hy.kv_sources()[layer_idx] != layer_idx:
+            del p["attn"]["wk"], p["attn"]["wv"]
+        p["mamba"] = ssm.init_mamba(gen, d, cfg.ssm_state, dt_rank=hy.dt_rank, inner=hy.ssm_inner)
         p["norm_attn"] = init_norm(gen, d, "rmsnorm")
         p["norm_ssm"] = init_norm(gen, d, "rmsnorm")
     p["norm2"] = init_norm(gen, d, cfg.norm)
@@ -75,12 +86,15 @@ def _hymba_mix(params: Params, attn_out: torch.Tensor, ssm_out: torch.Tensor) ->
 
 
 def block_apply(
-    params: Params, x: torch.Tensor, cfg: ModelConfig, layer_idx: int
+    params: Params, x: torch.Tensor, cfg: ModelConfig, layer_idx: int,
+    kv: dict | None = None, state: Params | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward.  Returns (x, aux_loss); aux is 0 without MoE.
     With ``cfg.fsdp_weight_gather`` the block's DTensor weights first take
     their tensor-parallel-only layout (gathered over ``data``), as the
-    reference constrains them."""
+    reference constrains them.  ``kv`` carries shared K/V
+    (:func:`.layers.attention_apply`); with ``state`` a Hymba layer leaves
+    its Mamba's decode state there (:func:`.ssm.mamba_apply`)."""
     if cfg.fsdp_weight_gather:
         params = tp_only_layout(params)
     kind = block_kind(cfg, layer_idx)
@@ -92,17 +106,21 @@ def block_apply(
         return x + ssm.mlstm_apply(params["cell"], h, chunk), zero
     if kind == "slstm":
         return x + ssm.slstm_apply(params["cell"], h, cfg.n_heads), zero
+    hy = hymba.options(cfg)
     attn_out = attention_apply(
         params["attn"],
         h,
         n_kv=cfg.n_kv_heads,
         rope_theta=cfg.rope_theta,
-        sliding_window=cfg.sliding_window,
+        sliding_window=hy.window(layer_idx),
         softcap=cfg.logit_softcap,
         repeat_kv=cfg.gqa_repeat_kv,
+        prefix=hy.n_meta_tokens,
+        kv=kv,
     )
     if kind == "hymba":
-        x = x + _hymba_mix(params, attn_out, ssm.mamba_apply(params["mamba"], h, chunk))
+        mamba = ssm.mamba_apply(params["mamba"], h, chunk, state=state)
+        x = x + _hymba_mix(params, attn_out, mamba)
     else:
         x = x + attn_out
     x, aux = _ffn(params, x, cfg)
@@ -141,20 +159,23 @@ def init_block_cache(
 ) -> Params:
     """The layer's decode state, on the card unless the caller asks for the
     CPU: a KV cache of ``dtype`` (with a sliding window, a ring of
-    min(cache_len, window) slots), and for the SSM kinds their float32
-    states, whatever ``dtype`` is (as the reference)."""
+    min(cache_len, window) slots, after Hymba's meta tokens:
+    :func:`.hymba.cache_slots`), none on a layer that reuses its partner's,
+    and for the SSM kinds their float32 states, whatever ``dtype`` is (as
+    the reference)."""
     kind = block_kind(cfg, layer_idx)
     d = cfg.d_model
     if kind == "mlstm":
         return {"cell": ssm.init_mlstm_cache(batch, d, cfg.n_heads, device=device)}
     if kind == "slstm":
         return {"cell": ssm.init_slstm_cache(batch, d, device=device)}
-    eff_len = min(cache_len, cfg.sliding_window) if cfg.sliding_window else cache_len
-    c: Params = {
-        "kv": init_kv_cache(batch, cfg.n_kv_heads, eff_len, cfg.resolved_head_dim, dtype, device)
-    }
+    hy = hymba.options(cfg)
+    c: Params = {}
+    if hy.kv_sources()[layer_idx] == layer_idx:
+        c["kv"] = init_kv_cache(batch, cfg.n_kv_heads, hymba.cache_slots(cfg, layer_idx, cache_len),
+                                cfg.resolved_head_dim, dtype, device)
     if kind == "hymba":
-        c["mamba"] = ssm.init_mamba_cache(batch, d, cfg.ssm_state, device=device)
+        c["mamba"] = ssm.init_mamba_cache(batch, hy.ssm_inner, cfg.ssm_state, device=device)
     return c
 
 

@@ -23,6 +23,7 @@ from typing import Any, NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from ..device import resolve_device
 from ..kernels import ops
@@ -115,28 +116,42 @@ def attention_apply(
     sliding_window: int = 0,
     softcap: float = 0.0,
     repeat_kv: bool = False,
+    prefix: int = 0,
+    kv: dict | None = None,
 ) -> torch.Tensor:
     """Full (prefill) causal GQA attention through the flash-attention
-    kernel.  x: (B, S, d) → (B, S, d).
+    kernel.  x: (B, S, d) → (B, S, d).  With a window, the first
+    ``prefix`` positions stay visible to every query (Hymba's meta tokens).
+
+    ``kv`` carries K and V (after RoPE, (B, S, KV, hd)) between layers
+    that share them: a layer with ``wk``/``wv`` leaves its own there, a
+    layer without them attends with what its partner left.
 
     ``repeat_kv`` changes only how the reference shards its einsums: its
     ``jnp.repeat`` sends query head h to KV head h // (H / KV), which is the
     kernel's own GQA map, so both settings make the same kernel call."""
     del repeat_kv
     b, s, _ = x.shape
+    own = "wk" in params
     q = _project(x, params["wq"])
-    k = _project(x, params["wk"])
-    v = _project(x, params["wv"])
-    if k.shape[2] != n_kv:
-        raise ValueError(f"wk has {k.shape[2]} KV heads, expected {n_kv}")
+    if own:
+        k = _project(x, params["wk"])
+        v = _project(x, params["wv"])
+        if k.shape[2] != n_kv:
+            raise ValueError(f"wk has {k.shape[2]} KV heads, expected {n_kv}")
     sin, cos = rope_tables(torch.arange(s, device=x.device)[None, :], q.shape[-1], rope_theta)
     q = rope_apply(q, sin, cos)
-    k = rope_apply(k, sin, cos)
+    if own:
+        k = rope_apply(k, sin, cos)
+        if kv is not None:
+            kv.update(k=k, v=v)
+    else:
+        k, v = kv["k"], kv["v"]
     # (B, S, heads, hd) → (B, heads, S, hd) as strided views: the kernel
     # takes any stride but the head dimension's.
     ctx = ops.flash_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        causal=True, window=sliding_window, softcap=softcap,
+        causal=True, window=sliding_window, softcap=softcap, prefix=prefix,
     )
     return merge_heads(ctx.transpose(1, 2), params["wo"].to(x.dtype))
 
@@ -179,19 +194,27 @@ def decode_slot(
     rope_theta: float,
     sliding_window: int = 0,
     device: str | torch.device,
+    prefix: int = 0,
 ) -> DecodeSlot:
     """The slot and the attended length of a step at ``pos`` (an int or a
     0-d integer tensor, one position for every row, kept on the device: no
     sync).  With a sliding window the cache is a ring and the slot is
-    ``pos mod S``; else the slot is ``pos``, clamped to the last slot once
-    ``pos`` passes it, as JAX's ``dynamic_update_slice`` clamps its start.
-    Every row attends its first ``min(pos + 1, S)`` slots: both of the
-    reference's masks, since a softmax does not see the order of the ring."""
+    ``pos mod S``, or, with a ``prefix`` (Hymba's meta tokens, kept in the
+    first slots), ``prefix + (pos − prefix) mod (S − prefix)`` past it;
+    else the slot is ``pos``, clamped to the last slot once ``pos`` passes
+    it, as JAX's ``dynamic_update_slice`` clamps its start.  Every row
+    attends its first ``min(pos + 1, S)`` slots: both of the reference's
+    masks, since a softmax does not see the order of the ring."""
     if isinstance(pos, torch.Tensor):
         pos = pos.to(device=device, dtype=torch.long).reshape(())
     else:
         pos = torch.full((), pos, dtype=torch.long, device=device)
-    slot = pos % cache_len if sliding_window > 0 else pos.clamp(0, cache_len - 1)
+    if sliding_window > 0 and prefix > 0:
+        slot = torch.where(pos < prefix, pos, prefix + (pos - prefix) % (cache_len - prefix))
+    elif sliding_window > 0:
+        slot = pos % cache_len
+    else:
+        slot = pos.clamp(0, cache_len - 1)
     valid_len = (pos + 1).clamp(0, cache_len).to(torch.int32).expand(batch).contiguous()
     sin, cos = rope_tables(pos.reshape(1, 1), head_dim, rope_theta)
     return DecodeSlot(slot.reshape(1), valid_len, sin, cos)
@@ -217,21 +240,26 @@ def attention_decode(
     **The cache is updated in place** and returned (the reference returns a
     new one): this step's K and V, rounded to the cache's type, go to the
     step's slot, and every row attends the step's valid length (see
-    :func:`decode_slot`)."""
+    :func:`decode_slot`).  A layer without ``wk``/``wv`` (Hymba's second
+    of a pair sharing K/V) writes nothing and attends over its partner's
+    cache, which the partner has written in the same step."""
     b = x.shape[0]
+    own = "wk" in params
     q = _project(x, params["wq"])
-    k = _project(x, params["wk"])
-    v = _project(x, params["wv"])
-    if k.shape[2] != n_kv:
-        raise ValueError(f"wk has {k.shape[2]} KV heads, expected {n_kv}")
+    if own:
+        k = _project(x, params["wk"])
+        v = _project(x, params["wv"])
+        if k.shape[2] != n_kv:
+            raise ValueError(f"wk has {k.shape[2]} KV heads, expected {n_kv}")
     at = pos if isinstance(pos, DecodeSlot) else decode_slot(
         pos, b, cache["k"].shape[2], head_dim=q.shape[-1], rope_theta=rope_theta,
         sliding_window=sliding_window, device=x.device,
     )
     q = rope_apply(q, at.sin, at.cos)
-    k = rope_apply(k, at.sin, at.cos)
-    for name, new in (("k", k), ("v", v)):
-        write_slot(cache[name], at.slot, new.transpose(1, 2).to(cache[name].dtype))
+    if own:
+        k = rope_apply(k, at.sin, at.cos)
+        for name, new in (("k", k), ("v", v)):
+            write_slot(cache[name], at.slot, new.transpose(1, 2).to(cache[name].dtype))
     ctx = ops.decode_attention(q[:, 0], cache["k"], cache["v"], at.valid_len, softcap=softcap)
     return merge_heads(ctx, params["wo"].to(x.dtype))[:, None], cache
 
@@ -288,6 +316,12 @@ def embed_apply(params: Params, tokens: torch.Tensor, dtype: torch.dtype) -> tor
 
 
 def unembed_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
-    """Tied head: x (..., d) against the embedding table (vocab, d)."""
-    return linear(x, params["table"].to(x.dtype).T)
+    """Tied head: x (..., d) against the embedding table (vocab, d).  The
+    plain product: the table's transpose has strided rows, which the GEMM
+    kernel cannot address, so it is no weight product of the kernel's.  On
+    DTensors it is placed as :func:`.sharding.linear` places a weight."""
+    w = params["table"].to(x.dtype).T
+    if isinstance(x, DTensor) or isinstance(w, DTensor):
+        return linear(x, w)
+    return x @ w
 

@@ -5,10 +5,13 @@ The counterpart of :class:`repro.models.Model`: the forward
 (``hidden_states`` / ``logits``), the training loss (``loss``), ``prefill``,
 and one-token decoding over a cache (``init_cache`` / ``decode_step``), for
 every block kind of the zoo (attention, MoE, Hymba, xLSTM) and both
-frontends.  Parameters are a dict of tensors in the JAX layout, passed
-explicitly as in the reference; the per-layer parameters are always a list
-of ``n_layers`` dicts (the scanned, stacked layout of the reference is
-unstacked by :mod:`.convert`), and so is the cache: a list of ``n_layers``
+frontends, and Hymba's options beyond the reference's configuration
+(:class:`.hymba.HymbaConfig`: meta tokens joined in front of the prompt,
+global and windowed layers, K/V shared by pairs of layers).  Parameters
+are a dict of tensors in the JAX layout, passed explicitly as in the
+reference; the per-layer parameters are always a list of ``n_layers``
+dicts (the scanned, stacked layout of the reference is unstacked by
+:mod:`.convert`), and so is the cache: a list of ``n_layers``
 per-layer dicts (see :func:`.blocks.init_block_cache`), the KV caches in
 the decode kernel's (B, KV, S, head_dim) layout.
 
@@ -26,7 +29,8 @@ scanned unit (or each unrolled block) in ``jax.checkpoint``: nothing is
 saved between blocks (``nothing_saveable``), or, with ``remat_policy ==
 "dots"``, the outputs of the 2-D matrix products are kept
 (``dots_with_no_batch_dims_saveable``).  The backward re-runs each block's
-forward, so its kernels launch twice.
+forward, so its kernels launch twice.  It is refused where layers share
+K/V: the recomputed layer would not hand its K/V to its partner again.
 """
 
 from __future__ import annotations
@@ -40,8 +44,10 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from ..device import resolve_device
+from . import hymba
 from .blocks import block_apply, block_decode, init_block, init_block_cache
 from .config import ModelConfig
+from .hymba import HymbaConfig
 from .sharding import gather_last, linear
 from .layers import (
     DecodeSlot,
@@ -95,6 +101,8 @@ class Model(nn.Module):
         params: Params = {}
         if cfg.frontend != "audio":
             params["embed"] = init_embedding(generator, cfg.vocab_size, cfg.d_model)
+        if n_meta := hymba.options(cfg).n_meta_tokens:
+            params["meta"] = _init(generator, (n_meta, cfg.d_model), scale=1.0)
         if cfg.frontend:
             params["frontend_proj"] = _init(generator, (self.frontend_dim, cfg.d_model))
         params["blocks"] = [init_block(generator, cfg, i) for i in range(cfg.n_layers)]
@@ -138,20 +146,44 @@ class Model(nn.Module):
         self, params: Params, batch: dict[str, torch.Tensor]
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """Full-sequence forward → (hidden (B, S, d), aux_loss)."""
+        return self._stack(params, batch)
+
+    def _stack(
+        self, params: Params, batch: dict[str, torch.Tensor], states: list | None = None,
+        shared: dict | None = None,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The forward of :meth:`hidden_states`, Hymba's meta tokens joined
+        in front of the input and dropped before the final norm.  ``states``
+        (a list) receives each layer's Mamba state and ``shared`` each
+        K/V-computing layer's K and V (:func:`.hymba.HymbaConfig.kv_sources`),
+        as a prefill that fills a cache needs them."""
         cfg = self.cfg
+        hy = hymba.options(cfg)
         x = self._embed_inputs(params, batch)
+        if hy.n_meta_tokens:
+            meta = params["meta"].to(x.dtype)[None].expand(x.shape[0], -1, -1)
+            x = torch.cat([meta, x], 1)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         remat = cfg.remat and torch.is_grad_enabled()
+        if shared is None and hy.kv_share:
+            if remat:
+                raise ValueError("remat would recompute a layer whose K/V another layer reads")
+            shared = {}
+        sources = hy.kv_sources()
         for i, bp in enumerate(params["blocks"]):
+            kv = None if shared is None else shared.setdefault(sources[i], {})
+            state = None if states is None else {}
             if remat:
                 # A block draws no random numbers, so its recomputation needs
                 # no saved RNG state (reading it is refused under graph capture).
                 x, da = ckpt.checkpoint(block_apply, bp, x, cfg, i, use_reentrant=False,
                                         preserve_rng_state=False, **_remat_kwargs(cfg))
             else:
-                x, da = block_apply(bp, x, cfg, i)
+                x, da = block_apply(bp, x, cfg, i, kv, state)
+            if states is not None:
+                states.append(state)
             aux = aux + da
-        return norm_apply(params["final_norm"], x, cfg.norm), aux
+        return norm_apply(params["final_norm"], x[:, hy.n_meta_tokens:], cfg.norm), aux
 
     def _head(self, params: Params, h: torch.Tensor) -> torch.Tensor:
         if self.cfg.tie_embeddings:
@@ -204,21 +236,61 @@ class Model(nn.Module):
         """One zeroed decode state per layer, on the model's device: KV
         caches of ``dtype``, bfloat16 by default as in the reference (K/V are
         rounded to it when written and read back to the step's type), and
-        the SSM kinds' float32 states."""
-        return [
+        the SSM kinds' float32 states.  A Hymba layer that reuses K/V holds
+        its partner's K/V cache (the same tensors)."""
+        caches = [
             init_block_cache(self.cfg, i, batch, cache_len, dtype, self.device)
             for i in range(self.cfg.n_layers)
         ]
+        for i, src in enumerate(hymba.options(self.cfg).kv_sources()):
+            if src != i:
+                caches[i]["kv"] = caches[src]["kv"]
+        return caches
 
     # ----------------------------------------------------------- prefill
     def prefill(
-        self, params: Params, batch: dict[str, torch.Tensor], cache_len: int
-    ) -> tuple[torch.Tensor, None]:
+        self, params: Params, batch: dict[str, torch.Tensor], cache_len: int,
+        cache_dtype: torch.dtype = torch.bfloat16,
+    ) -> tuple[torch.Tensor, list[Params] | None]:
         """The full prompt's forward → (last position's logits (B, 1, V),
-        None): as in the reference, no cache is filled."""
-        del cache_len
-        h, _ = self.hidden_states(params, batch)
-        return self._head(params, h[:, -1:]), None
+        None): as in the reference, no cache is filled.  A
+        :class:`.hymba.HymbaConfig` fills one of ``cache_len`` positions
+        (meta tokens included) and ``cache_dtype`` and returns it in None's
+        place: the meta tokens' slots, each windowed layer's ring of its
+        last positions, every position of a global layer, each Mamba's
+        state.  Every row's prompt has the batch's length."""
+        if not isinstance(self.cfg, HymbaConfig):
+            h, _ = self.hidden_states(params, batch)
+            return self._head(params, h[:, -1:]), None
+        with torch.no_grad():
+            states: list = []
+            shared: dict = {}
+            h, _ = self._stack(params, batch, states, shared)
+            return self._head(params, h[:, -1:]), self._fill_cache(
+                h, states, shared, cache_len, cache_dtype)
+
+    def _fill_cache(self, h, states, shared, cache_len, cache_dtype) -> list[Params]:
+        """A decode cache from :meth:`_stack`'s Mamba ``states`` and the K/V
+        in ``shared``, after a prompt whose hidden states are ``h``."""
+        cfg = self.cfg
+        p = cfg.n_meta_tokens
+        total = p + h.shape[1]
+        cache = self.init_cache(h.shape[0], cache_len, cache_dtype)
+        for i, (c, st) in enumerate(zip(cache, states)):
+            c["mamba"]["h"].copy_(st["h"])
+            c["mamba"]["conv"].copy_(st["conv"])
+            if i not in shared:
+                continue
+            slots = c["kv"]["k"].shape[2]
+            keep = torch.arange(total, device=h.device)
+            if cfg.window(i):  # the meta tokens and the ring's last positions
+                keep = keep[(keep < p) | (keep >= max(p, total - (slots - p)))]
+            elif total > slots:
+                raise ValueError(f"{total} positions do not fit a global layer's {slots} slots")
+            at = hymba.slot_of(cfg, i, keep, slots)
+            for name in ("k", "v"):
+                c["kv"][name][:, :, at] = shared[i][name][:, keep].transpose(1, 2).to(cache_dtype)
+        return cache
 
     # ------------------------------------------------------------ decode
     def decode_step(
@@ -233,25 +305,26 @@ class Model(nn.Module):
         int or a 0-d tensor).  Returns (logits (B, 1, V), cache); **the cache
         is updated in place** and returned."""
         cfg = self.cfg
+        hy = hymba.options(cfg)
         if cfg.frontend == "audio":
             x = self._project_frontend(params, tokens)
         else:
             x = self._embed_tokens(params, tokens)
         # The slot, the valid length and the rotary tables are the same for
-        # every attention layer of a cache length: made once per step.
-        slots: dict[int, DecodeSlot] = {}
+        # every attention layer of a cache length and window: made once per step.
+        slots: dict[tuple[int, int], DecodeSlot] = {}
         new_cache = []
         for i, (bp, c) in enumerate(zip(params["blocks"], cache, strict=True)):
             at = pos
             if "kv" in c:
-                n = c["kv"]["k"].shape[2]
-                if n not in slots:
-                    slots[n] = decode_slot(
-                        pos, x.shape[0], n, head_dim=cfg.resolved_head_dim,
-                        rope_theta=cfg.rope_theta, sliding_window=cfg.sliding_window,
-                        device=x.device,
+                key = (c["kv"]["k"].shape[2], hy.window(i))
+                if key not in slots:
+                    slots[key] = decode_slot(
+                        pos, x.shape[0], key[0], head_dim=cfg.resolved_head_dim,
+                        rope_theta=cfg.rope_theta, sliding_window=key[1],
+                        device=x.device, prefix=hy.n_meta_tokens,
                     )
-                at = slots[n]
+                at = slots[key]
             x, c2 = block_decode(bp, x, c, at, cfg, i)
             new_cache.append(c2)
         x = norm_apply(params["final_norm"], x, cfg.norm)

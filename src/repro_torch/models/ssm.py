@@ -10,14 +10,24 @@ default) and ``*_decode`` takes one token and **updates the state in
 place** (the reference returns a new one), returning it.
 
 No kernel backs these cells in the reference (it computes them in
-``jnp``), so they are torch operations here:
+``jnp``), so they are torch operations here, but for Mamba's scan on the
+card:
 
-- Mamba keeps the reference's chunks and carry; inside a chunk the
-  recurrence h_t = a_t·h_{t-1} + b_t is a log-depth doubling scan over the
-  chunk axis with the combine ``(a1·a2, b1·a2 + b2)`` of the reference's
+- Mamba's recurrence h_t = a_t·h_{t-1} + b_t follows the tensor's
+  device.  A CUDA tensor takes the selective-scan kernel
+  (:func:`repro_torch.kernels.ops.selective_scan`): it reads the
+  convolved input, Δ, B, C and the gate once, fuses the D skip and the
+  SiLU gate, and writes y (and the last state where asked); what the
+  kernel does not take (bfloat16, a state other than 16, a DTensor) is
+  refused there.  Its backward recomputes the torch scan below and
+  differentiates that.  Any other tensor (the CPU, the dry-run's meta
+  shards) keeps the reference's chunks and carry; inside a chunk the
+  recurrence is a log-depth doubling scan over the chunk axis with the
+  combine ``(a1·a2, b1·a2 + b2)`` of the reference's
   ``lax.associative_scan``, in another association order.  Neither a
-  cumulative product divided out (``a`` reaches e^(−16·dt) and the products
-  underflow) nor a (chunk × chunk) decay matrix over (B, d, N) is formed.
+  cumulative product divided out (``a`` reaches e^(−16·dt) and the
+  products underflow) nor a (chunk × chunk) decay matrix over (B, d, N)
+  is formed.
 - mLSTM is the reference's chunkwise form, stabiliser ``log(f + 1e-9)``
   included, with its state carried in float32.
 - sLSTM's gates read h_{t-1}, so it steps through the sequence one token at
@@ -34,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
+from ..kernels import ops
 from .layers import _init, _project
 from .sharding import by_batch_and_heads, by_rows, by_rows_and_channels, linear
 
@@ -53,23 +64,27 @@ def _chunk_len(s: int, chunk: int) -> int:
 # Mamba (selective SSM) — Hymba's parallel SSM head
 # =====================================================================
 def init_mamba(
-    gen: torch.Generator, d: int, n_state: int, dt_rank: int = 16, conv_w: int = 4
+    gen: torch.Generator, d: int, n_state: int, dt_rank: int = 16, conv_w: int = 4,
+    inner: int | None = None,
 ) -> Params:
+    """Mamba's leaves for a model of width ``d`` and an inner width
+    ``inner`` (default ``d``, the reference's; Hymba-1.5B's is 2·d)."""
     dev = gen.device
+    e = inner or d
     p = {
-        "in_x": _init(gen, (d, d)),
-        "in_z": _init(gen, (d, d)),
-        "conv": _init(gen, (conv_w, d), scale=1.0 / math.sqrt(conv_w)),
-        "w_b": _init(gen, (d, n_state)),
-        "w_c": _init(gen, (d, n_state)),
-        "w_dt_lo": _init(gen, (d, dt_rank)),
-        "w_dt_hi": _init(gen, (dt_rank, d)),
-        "out": _init(gen, (d, d)),
+        "in_x": _init(gen, (d, e)),
+        "in_z": _init(gen, (d, e)),
+        "conv": _init(gen, (conv_w, e), scale=1.0 / math.sqrt(conv_w)),
+        "w_b": _init(gen, (e, n_state)),
+        "w_c": _init(gen, (e, n_state)),
+        "w_dt_lo": _init(gen, (e, dt_rank)),
+        "w_dt_hi": _init(gen, (dt_rank, e)),
+        "out": _init(gen, (e, d)),
     }
-    p["dt_bias"] = torch.zeros(d, device=dev)
+    p["dt_bias"] = torch.zeros(e, device=dev)
     a_log = torch.log(torch.arange(1, n_state + 1, dtype=torch.float32, device=dev))
-    p["a_log"] = a_log[None, :] * torch.ones((d, 1), device=dev)
-    p["d_skip"] = torch.ones(d, device=dev)
+    p["a_log"] = a_log[None, :] * torch.ones((e, 1), device=dev)
+    p["d_skip"] = torch.ones(e, device=dev)
     return p
 
 
@@ -100,16 +115,68 @@ def _mamba_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor, chunk: int) 
     return torch.cat(outs, 1)
 
 
+def _mamba_dt(params: Params, xc: torch.Tensor) -> torch.Tensor:
+    """Δ = softplus(xc·W_dt_lo·W_dt_hi + dt_bias) of the convolved input."""
+    dtype = xc.dtype
+    return F.softplus(
+        linear(linear(xc, params["w_dt_lo"].to(dtype)), params["w_dt_hi"].to(dtype))
+        + params["dt_bias"].to(dtype)
+    )
+
+
 def _mamba_gates(params: Params, xc: torch.Tensor) -> tuple[torch.Tensor, ...]:
     """dt, the float32 decay a = exp(−exp(a_log)·dt) and the B and C
     projections of the convolved input xc (..., d)."""
     dtype = xc.dtype
-    dt = F.softplus(
-        linear(linear(xc, params["w_dt_lo"].to(dtype)), params["w_dt_hi"].to(dtype))
-        + params["dt_bias"].to(dtype)
-    )
-    a = torch.exp(-torch.exp(params["a_log"].float()) * dt[..., None].float())
-    return dt, a, linear(xc, params["w_b"].to(dtype)), linear(xc, params["w_c"].to(dtype))
+    dt = _mamba_dt(params, xc)
+    return dt, _decay(params["a_log"], dt), linear(xc, params["w_b"].to(dtype)), linear(
+        xc, params["w_c"].to(dtype))
+
+
+def _decay(a_log: torch.Tensor, dt: torch.Tensor) -> torch.Tensor:
+    """a = exp(−exp(a_log)·Δ), float32: (..., d) → (..., d, N)."""
+    return torch.exp(-torch.exp(a_log.float()) * dt[..., None].float())
+
+
+def _scan_torch(xc, dt, bmat, cmat, z, a_log, d_skip, chunk: int):
+    """The scan in torch operations → (y, the last state): the doubling scan
+    of the drives (Δ·x)·B, then C, the D skip and the SiLU gate.  The
+    kernel's inputs and outputs."""
+    dtype = xc.dtype
+    a = _decay(a_log, dt)  # (B, S, inner, N) float32
+    bterm = ((dt * xc)[..., None] * bmat[:, :, None, :]).to(a.dtype)
+    h0 = torch.zeros((xc.shape[0], xc.shape[2], bmat.shape[-1]), dtype=a.dtype, device=xc.device)
+    scan = functools.partial(_mamba_scan, chunk=chunk)
+    h_all = by_rows_and_channels(scan, a, bterm, h0, dims=((0, 2), (0, 2), (0, 1)), out_dims=(0, 2))
+    y = torch.einsum("bsdn,bsn->bsd", h_all.to(dtype), cmat)
+    y = y + xc * d_skip.to(dtype)
+    return y * F.silu(z), h_all[:, -1]
+
+
+class _CardScan(torch.autograd.Function):
+    """The selective-scan kernel forward; the backward recomputes
+    :func:`_scan_torch` on the saved inputs and differentiates it (the
+    kernel has no backward of its own).  The state is not differentiated."""
+
+    @staticmethod
+    def forward(ctx, chunk, last_state, *inputs):
+        ctx.chunk = chunk
+        ctx.save_for_backward(*inputs)
+        y, h = ops.selective_scan(*inputs, last_state=last_state)
+        h = inputs[0].new_empty((0,)) if h is None else h
+        ctx.mark_non_differentiable(h)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        del dh
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[2:])]
+        with torch.enable_grad():
+            y, _ = _scan_torch(*inputs, chunk=ctx.chunk)
+        wrt = [t for t in inputs if t.requires_grad]
+        grads = iter(torch.autograd.grad(y, wrt, dy))
+        return None, None, *(next(grads) if t.requires_grad else None for t in inputs)
 
 
 def _causal_conv(xb: torch.Tensor, conv: torch.Tensor) -> torch.Tensor:
@@ -119,21 +186,30 @@ def _causal_conv(xb: torch.Tensor, conv: torch.Tensor) -> torch.Tensor:
     return sum(pad[:, i : i + s] * conv[i] for i in range(w))
 
 
-def mamba_apply(params: Params, x: torch.Tensor, chunk: int = 256) -> torch.Tensor:
-    """x: (B, S, d) → (B, S, d)."""
+def mamba_apply(params: Params, x: torch.Tensor, chunk: int = 256,
+                state: Params | None = None) -> torch.Tensor:
+    """x: (B, S, d) → (B, S, d).  With ``state`` (a dict), its ``"h"`` and
+    ``"conv"`` are set to the decode state after the last position: the
+    scan's last h (B, inner, N) float32 and the last conv − 1 rows of the
+    convolution's input (B, conv − 1, inner), zeros in front of a shorter
+    sequence."""
     dtype = x.dtype
     xb = linear(x, params["in_x"].to(dtype))
     z = linear(x, params["in_z"].to(dtype))
     xc = F.silu(by_rows_and_channels(_causal_conv, xb, params["conv"].to(dtype),
                                      dims=((0, 2), (None, 1)), out_dims=(0, 2)))
-    dt, a, bmat, cmat = _mamba_gates(params, xc)  # a: (B, S, d, N) float32
-    bterm = ((dt * xc)[..., None] * bmat[:, :, None, :]).to(a.dtype)
-    h0 = torch.zeros((x.shape[0], x.shape[2], bmat.shape[-1]), dtype=a.dtype, device=x.device)
-    scan = functools.partial(_mamba_scan, chunk=chunk)
-    h_all = by_rows_and_channels(scan, a, bterm, h0, dims=((0, 2), (0, 2), (0, 1)), out_dims=(0, 2))
-    y = torch.einsum("bsdn,bsn->bsd", h_all.to(dtype), cmat)
-    y = y + xc * params["d_skip"].to(dtype)
-    y = y * F.silu(z)
+    if state is not None:
+        w = params["conv"].shape[0]
+        state["conv"] = F.pad(xb, (0, 0, w - 1, 0))[:, -(w - 1):] if w > 1 else xb[:, :0]
+    dt, bmat, cmat = (_mamba_dt(params, xc), linear(xc, params["w_b"].to(dtype)),
+                      linear(xc, params["w_c"].to(dtype)))
+    inputs = (xc, dt, bmat, cmat, z, params["a_log"], params["d_skip"])
+    if xc.device.type == "cuda":
+        y, h_last = _CardScan.apply(chunk, state is not None, *inputs)
+    else:
+        y, h_last = _scan_torch(*inputs, chunk=chunk)
+    if state is not None:
+        state["h"] = h_last
     return linear(y, params["out"].to(dtype))
 
 

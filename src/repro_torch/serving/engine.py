@@ -28,6 +28,7 @@ tensors in place is seen by the graphs).
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
 from collections import deque
 from typing import Callable, Sequence
@@ -42,7 +43,7 @@ from ..core.scheduler import Batch
 from ..core.spans import ENGINE_FIT, EXEC_CAPTURE, EXEC_H2D, EXEC_PAD, EXEC_REPLAY, SpanLog
 from ..device import resolve_device
 from ..kernels import ops
-from ..models import Model, ModelConfig
+from ..models import Model, ModelConfig, hymba
 from .batcher import bucket_for, make_padded_batch, padded_batch_size
 from .faults import FaultPlan
 from .trace import offered_rate
@@ -79,8 +80,13 @@ class _Program:
     program replays the graph on ``stream`` and returns the graph's static
     output, which the next replay overwrites.  The capture's kernel calls
     launch nothing, so their launch counts are taken back and added again
-    at each replay (:func:`ops.captured_launches`).  On the CPU the warm-up
-    runs ``fn`` once and each call runs it eagerly."""
+    at each replay (:func:`ops.captured_launches`).  The cyclic garbage
+    collector is off during the capture: a graph of an executor dropped
+    earlier, freed by a collection in the middle of a capture, would free
+    device memory, which a capturing stream refuses, and the capture would
+    fail; such garbage waits for the next collection outside a capture.
+    On the CPU the warm-up runs ``fn`` once and each call runs it
+    eagerly."""
 
     def __init__(self, fn: Callable[[], torch.Tensor], device: torch.device,
                  stream: torch.cuda.Stream | None = None, pool=None):
@@ -95,10 +101,16 @@ class _Program:
             fn()
         stream.synchronize()
         self.graph = torch.cuda.CUDAGraph()
-        with ops.captured_launches() as self.launches, torch.cuda.graph(
-            self.graph, pool=pool, stream=stream
-        ):
-            self.out = fn()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with ops.captured_launches() as self.launches, torch.cuda.graph(
+                self.graph, pool=pool, stream=stream
+            ):
+                self.out = fn()
+        finally:
+            if collecting:
+                gc.enable()
 
     def __call__(self) -> torch.Tensor:
         if self.graph is None:
@@ -259,6 +271,13 @@ class DecodeTorchExecutor:
     purpose: once ``valid_len`` reaches ``max_cache``, ``pos = valid %
     max_cache`` sends every write to slot 0.
 
+    A Hymba configuration (:class:`repro_torch.models.HymbaConfig`) with
+    meta tokens keeps their K/V in ``n_meta_tokens`` fixed slots in front
+    of the ring, the same for every request (the meta tokens come first, so
+    no prompt reaches them), which every active row attends besides its
+    ring slots; with ``kv_share`` a step launches the kernel twice over the
+    one cache, a second layer's queries reading the K/V the first wrote.
+
     On a CUDA device the step always launches the kernel; the plain
     version runs only for a CPU device."""
 
@@ -283,6 +302,8 @@ class DecodeTorchExecutor:
         self.n_kv = model_cfg.n_kv_heads
         self.head_dim = model_cfg.head_dim or model_cfg.d_model // model_cfg.n_heads
         self.prefill = prefill
+        self.prefix = hymba.options(model_cfg).n_meta_tokens
+        self.readers = 2 if hymba.options(model_cfg).kv_share else 1
         self._rng = np.random.default_rng(seed)
         self._slot: dict[int, int] = {}  # rid -> cache slot
         self._free = list(range(max_batch - 1, -1, -1))
@@ -291,10 +312,17 @@ class DecodeTorchExecutor:
         def zeros(*shape, dtype=torch.float32):
             return torch.zeros(shape, dtype=dtype, device=self.device)
 
-        self._kc, self._vc = zeros(b, kv, max_cache, hd), zeros(b, kv, max_cache, hd)
+        slots = self.prefix + max_cache
+        self._kc, self._vc = zeros(b, kv, slots, hd), zeros(b, kv, slots, hd)
         self._valid_len = zeros(b, dtype=torch.int32)
         self._q, self._nk, self._nv = zeros(b, self.n_heads, hd), zeros(b, kv, hd), zeros(b, kv, hd)
+        self._queries = [self._q] + [zeros(b, self.n_heads, hd) for _ in range(self.readers - 1)]
         self._rows = torch.arange(b, device=self.device)
+        if self.prefix:  # the meta tokens' K/V, one set for every slot
+            meta = self._rng.standard_normal((2, kv, self.prefix, hd)).astype(np.float32)
+            meta = torch.from_numpy(meta).to(self.device)
+            self._kc[:, :, : self.prefix] = meta[0]
+            self._vc[:, :, : self.prefix] = meta[1]
         # The warm-up step (it builds the kernel), as the reference warms
         # its jit, then the capture.
         self._draw()
@@ -318,18 +346,20 @@ class DecodeTorchExecutor:
         attend over zero valid positions."""
         valid = self._valid_len
         active = valid > 0
-        pos = (valid % self.max_cache).long()
+        pos = (valid % self.max_cache).long() + self.prefix
         sel = active[:, None, None]
         rows = self._rows
         self._kc[rows, :, pos, :] = torch.where(sel, self._nk, self._kc[rows, :, pos, :])
         self._vc[rows, :, pos, :] = torch.where(sel, self._nv, self._vc[rows, :, pos, :])
         valid.copy_(torch.where(active, torch.clamp(valid + 1, max=self.max_cache), valid))
-        return ops.decode_attention(self._q, self._kc, self._vc, valid)
+        attend = torch.where(valid > 0, valid + self.prefix, valid) if self.prefix else valid
+        outs = [ops.decode_attention(q, self._kc, self._vc, attend) for q in self._queries]
+        return outs[0] if len(outs) == 1 else torch.cat(outs, 1)
 
     def _draw(self) -> None:
         """Draw this step's synthetic queries and new K/V (the reference's
         order) into their static tensors."""
-        for t in (self._q, self._nk, self._nv):
+        for t in (*self._queries, self._nk, self._nv):
             t.copy_(torch.from_numpy(self._rng.standard_normal(tuple(t.shape)).astype(np.float32)))
 
     def _decode_once(self) -> float:
@@ -377,8 +407,9 @@ class DecodeTorchExecutor:
             n_ctx = min(l, self.max_cache)
             kv = self._rng.standard_normal((2, self.n_kv, n_ctx, self.head_dim)).astype(np.float32)
             kv = torch.from_numpy(kv).to(self.device)
-            self._kc[slot, :, :n_ctx, :] = kv[0]
-            self._vc[slot, :, :n_ctx, :] = kv[1]
+            ring = slice(self.prefix, self.prefix + n_ctx)
+            self._kc[slot, :, ring, :] = kv[0]
+            self._vc[slot, :, ring, :] = kv[1]
             self._valid[slot] = n_ctx
         return ms
 

@@ -468,6 +468,7 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     assert ops.launch_counts() == {
         "flash_attention": 0, "decode_attention": 0, "rmsnorm": 0, "moe_gating": 0,
         "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "moe_gating_bwd": 0, "gemm": 0,
+        "selective_scan": 0,
     }
 
 
@@ -486,6 +487,7 @@ def test_cpu_tensors_launch_neither_new_kernel():
     assert ops.launch_counts() == {
         "flash_attention": 0, "decode_attention": 0, "rmsnorm": 0, "moe_gating": 0,
         "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "moe_gating_bwd": 0, "gemm": 0,
+        "selective_scan": 0,
     }
 
 
@@ -669,6 +671,6 @@ def test_build_command_targets_hopper(monkeypatch):
         assert out.parent.name == "repro_torch_kernels" and out.parent.parent.name == "build"
         assert _build.library_path(name) == out  # keyed by content: stable
     # the four forwards, the backwards of flash attention, RMSNorm and the
-    # gates, and the float32 GEMM
-    assert len({_build.library_path(n) for n in _build.KERNELS}) == len(_build.KERNELS) == 8
+    # gates, the float32 GEMM and Mamba's selective scan
+    assert len({_build.library_path(n) for n in _build.KERNELS}) == len(_build.KERNELS) == 9
     assert set(_build.KERNELS) == set(ops.launch_counts())
