@@ -19,13 +19,13 @@ every shape they are timed at (float32 queries to 1e-4, bf16 ones to
 versions):
 
 - the kernel at each shape of SHAPES, every cache slot valid, by
-  ``chip_smoke.time_ms`` (20 launches replayed in a CUDA graph), beside its
-  bound on its route (``chip_smoke.decode_bound``);
+  ``kernel_table.time_ms`` (20 launches replayed in a CUDA graph), beside its
+  bound on its route (``kernel_table.decode_bound``);
 - GLM-4-9B's decode step at full depth and width (40 layers, float32
   weights from seed 0) at B 8 over its default bf16 cache at decode_32k's
   32,768 slots, every slot valid: the median of 15 eager steps on the
   host's clock to a synchronise, and the step replayed as a CUDA graph,
-  beside the bytes a step must move (``chip_smoke.phase_decode_step_time``'s
+  beside the bytes a step must move (``kernel_table.decode_steps``'s
   bound).
 
 ``--probe`` (with no names, all three) probes the current source:
@@ -36,11 +36,11 @@ versions):
   the numbers behind ``decode_attention.CLUSTERS_AT_ONE_A_SM``;
 - ``ablate``: the kernel, and the kernel built again with its cache loads
   taken out (``products``) or its products taken out (``loads``), at
-  ABLATE_SHAPES, every slot valid, each by ``chip_smoke.time_ms``.  A
+  ABLATE_SHAPES, every slot valid, each by ``kernel_table.time_ms``.  A
   variant computes garbage; only its time is read.  The edits are asserted
   to apply, so a changed source fails loudly;
 - ``plans``: every launch plan the launcher takes at PLAN_SHAPES (key
-  warps, ring stages, cluster size), timed by ``chip_smoke.time_ms``,
+  warps, ring stages, cluster size), timed by ``kernel_table.time_ms``,
   beside ``decode_plan``'s choice.
 
 Prints the card first; writes the versions' rounds to
@@ -63,9 +63,8 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT))
 
-import chip_smoke  # noqa: E402  (puts src/ on the path)
+import kernel_table  # noqa: E402  (beside this script; puts src/ on the path)
 
 OUT_DIR = ROOT / "build" / "decode_variants"
 ROUNDS = 2
@@ -187,19 +186,19 @@ def inputs(gen, shape):
     import torch
 
     b, h, kv, s, hd, qt, ct = shape
-    q = chip_smoke._randn(gen, (b, h, hd), getattr(torch, qt))
-    k, v = (chip_smoke._randn(gen, (b, kv, s, hd), getattr(torch, ct)) for _ in range(2))
+    q = kernel_table.randn(gen, (b, h, hd), getattr(torch, qt))
+    k, v = (kernel_table.randn(gen, (b, kv, s, hd), getattr(torch, ct)) for _ in range(2))
     return q, k, v, torch.full((b,), s, dtype=torch.int32, device="cuda")
 
 
 def bound(q, k, vl) -> tuple[float, str]:
-    """``chip_smoke.decode_bound`` on ``decode_plan``'s route."""
+    """``kernel_table.decode_bound`` on ``decode_plan``'s route."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import decode_attention as dec
 
     b, h, hd = q.shape
     plan = dec.decode_plan(b, h, k.shape[1], k.shape[2], hd, q.dtype, k.dtype, _build.sm_count(q.device))
-    return chip_smoke.decode_bound(q, k, vl, plan.route)
+    return kernel_table.decode_bound(q, k, vl, plan.route)
 
 
 def compare(fns: dict) -> None:
@@ -209,6 +208,7 @@ def compare(fns: dict) -> None:
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import ref
     from repro_torch.models import Model
+    from repro_torch.optim.adamw import leaves
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     args = {shape: inputs(gen, shape) for shape in SHAPES}
@@ -225,10 +225,10 @@ def compare(fns: dict) -> None:
     rows, slots, ct = STEP
     cache = model.init_cache(rows, slots, dtype=getattr(torch, ct))
     tokens = torch.ones((rows, 1), dtype=torch.long, device="cuda")
-    nbytes = lambda tree: sum(t.numel() * t.element_size() for t in chip_smoke._leaves(tree))  # noqa: E731
+    nbytes = lambda tree: sum(t.numel() * t.element_size() for t in leaves(tree))  # noqa: E731
     step_bytes = (nbytes(params) - nbytes(params["embed"]["table"]) + rows * CONFIG.d_model * 4 + nbytes(cache)
                   + rows * CONFIG.vocab_size * 4)
-    step_bound = step_bytes / chip_smoke.HBM_BYTES_PER_S * 1e3
+    step_bound = step_bytes / kernel_table.HBM_BYTES_PER_S * 1e3
 
     def step():
         with torch.no_grad():
@@ -241,7 +241,7 @@ def compare(fns: dict) -> None:
         for label in labels if r % 2 == 0 else labels[::-1]:
             use(fns[label])
             for shape, a in args.items():
-                runs[label]["kernel_ms"][str(shape)].append(chip_smoke.time_ms(lambda a=a: dec.decode_attention_cuda(*a)))
+                runs[label]["kernel_ms"][str(shape)].append(kernel_table.time_ms(lambda a=a: dec.decode_attention_cuda(*a)))
             for _ in range(3):
                 step()
             torch.cuda.synchronize()
@@ -252,7 +252,7 @@ def compare(fns: dict) -> None:
                 torch.cuda.synchronize()
                 times.append((time.perf_counter() - t0) * 1e3)
             runs[label]["step_eager_ms"].append(statistics.median(times))
-            runs[label]["step_graph_ms"].append(chip_smoke.time_ms(step, reps=3, graphs=3))
+            runs[label]["step_graph_ms"].append(kernel_table.time_ms(step, reps=3, graphs=3))
     for shape, (q, k, v, vl) in args.items():
         b_ms, by = bound(q, k, vl)
         for label in labels:
@@ -266,7 +266,7 @@ def compare(fns: dict) -> None:
               f"{[round(x, 4) for x in graph]}; step byte bound {step_bound:.4f} ms ({step_bytes} bytes), "
               f"graph /bound {statistics.median(graph) / step_bound:.3f}", flush=True)
     out = OUT_DIR / "runs.json"
-    out.write_text(json.dumps({"card": chip_smoke.card_line(), "variants": labels, "step_bound_ms": step_bound,
+    out.write_text(json.dumps({"card": kernel_table.card_line(), "variants": labels, "step_bound_ms": step_bound,
                                "runs": runs}, indent=1))
     print(f"every round's numbers: {out}", flush=True)
 
@@ -291,7 +291,7 @@ def ablate(fns: dict) -> None:
         ms = {}
         for label, fn in fns.items():
             use(fn)
-            ms[label] = chip_smoke.time_ms(lambda: dec.decode_attention_cuda(q, k, v, vl))
+            ms[label] = kernel_table.time_ms(lambda: dec.decode_attention_cuda(q, k, v, vl))
         b_ms, by = bound(q, k, vl)
         print(f"ablate {shape}: kernel {ms['kernel']:.6f} ms, its loads alone {ms['loads']:.6f}, its products "
               f"alone {ms['products']:.6f}; bound {b_ms:.6f} ms ({by})", flush=True)
@@ -321,7 +321,7 @@ def plans(fn) -> None:
             plan = dataclasses.replace(chosen, warps=key_warps * m_tiles, stages=stages, cluster=cluster,
                                        stage_keys=dec.TC_KEYS * key_warps, dynamic_bytes=smem)
             with planned(plan):
-                times.append((chip_smoke.time_ms(lambda: dec.decode_attention_cuda(q, k, v, vl)), key_warps,
+                times.append((kernel_table.time_ms(lambda: dec.decode_attention_cuda(q, k, v, vl)), key_warps,
                               stages, cluster, smem))
         times.sort()
         best = ", ".join(f"{t:.6f} ms (key warps {w}, stages {st}, cluster {c}, {sm} B)"
@@ -347,7 +347,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("decode_variants: no CUDA device is visible", file=sys.stderr)
         return 2
-    print(chip_smoke.card_line(), flush=True)
+    print(kernel_table.card_line(), flush=True)
 
     sources = {}
     for spec in args.variants:

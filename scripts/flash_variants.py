@@ -18,10 +18,10 @@ handed the shapes alone.
 The versions, when given, are first held against the plain version at
 every shape they are timed at (float32 to 1e-4, bf16 to 2e-2).  Then, in
 turns (the order reversed every round: A B B A for two versions), each
-runs at every shape of SHAPES (chip_smoke's flash shapes, causal) by
-``chip_smoke.time_ms`` (20 launches replayed in a CUDA graph), printed
+runs at every shape of SHAPES (the kernel entries' flash shapes, causal) by
+``kernel_table.time_ms`` (20 launches replayed in a CUDA graph), printed
 beside SDPA's time on the same inputs (its keys repeated over the group)
-and the tensor-core bound (``chip_smoke.flash_tc_bound``).
+and the tensor-core bound (``kernel_table.flash_tc_bound``).
 
 ``--models`` times, with each version in turns, the (8, 256) forward of
 four models the port serves, each replayed as a CUDA graph (logits, no
@@ -38,13 +38,13 @@ and MusicGen-large computing in bf16 (256 audio frames a row).
   once, and the split pass and products run on whatever the ring holds)
   or with its split pass and products taken out (``loads``: the tiles
   still land and are released), at ABLATE_SHAPES, each by
-  ``chip_smoke.time_ms``.  A variant computes garbage; only its time is
+  ``kernel_table.time_ms``.  A variant computes garbage; only its time is
   read.  The edits are asserted to apply, so a changed source fails
   loudly;
 - ``plans``: every plan that the launcher takes at PLAN_SHAPES (the wgmma
   route at 1 and 2 warpgroups and 2 to 4 stages, or the mma_sync route at
   2 and 4 warps, whichever is built there), timed by
-  ``chip_smoke.time_ms``, beside ``flash_plan``'s choice.
+  ``kernel_table.time_ms``, beside ``flash_plan``'s choice.
 
 Prints the card first; writes the versions' rounds to
 ``build/flash_variants/runs.json``.
@@ -63,14 +63,13 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT))
 
-import chip_smoke  # noqa: E402  (puts src/ on the path)
+import kernel_table  # noqa: E402  (beside this script; puts src/ on the path)
 
 OUT_DIR = ROOT / "build" / "flash_variants"
 SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 ROUNDS = 2
-# (B, H, KV, S, hd, type, window): chip_smoke's flash shapes, causal.
+# (B, H, KV, S, hd, type, window): the kernel entries' flash shapes, causal.
 SHAPES = (
     (8, 12, 12, 256, 64, "float32", 0),  # orloj_gpt's (8, 256) batch, the main path
     (8, 56, 8, 256, 128, "float32", 0),  # Arctic, g 7
@@ -164,17 +163,24 @@ def build(sources: dict[str, str]) -> dict[str, Path]:
 
 def entry(lib: Path, source: str):
     """The library's C entry point with the port's argument list: an older
-    one, which takes no plan (no ``int route`` among its parameters), is
-    handed the shapes and the stream alone."""
+    one without ``int prefix`` among its parameters is handed the rest, and
+    one that takes no plan (no ``int route``) the shapes and the stream
+    alone."""
     c_int, c_ll, c_ptr = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
     fn = ctypes.CDLL(str(lib)).flash_attention_launch
     fn.restype = c_int
-    head = [c_ptr] * 6 + [c_int] * 6 + [c_ll] * 9 + [c_int, c_int, ctypes.c_float]
-    if re.search(r"flash_attention_launch\([^)]*int route", source):
+    params = re.search(r"flash_attention_launch\(([^)]*)\)", source).group(1)
+    prefix = "int prefix" in params
+    head = [c_ptr] * 6 + [c_int] * 6 + [c_ll] * 9 + [c_int, c_int] + [c_int] * prefix + [ctypes.c_float]
+
+    def taken(args):  # the port's arguments: ..., causal, window, prefix, softcap, ...
+        return args if prefix else (*args[:23], *args[24:])
+
+    if "int route" in params:
         fn.argtypes = head + [c_int] * 6 + [c_ll, c_ptr]
-        return fn
+        return lambda *args: fn(*taken(args))
     fn.argtypes = head + [c_ptr]
-    return lambda *args: fn(*args[:24], args[-1])
+    return lambda *args: fn(*taken(args)[:len(head)], args[-1])
 
 
 def use(fn) -> None:
@@ -201,8 +207,8 @@ def inputs(gen, shape):
     import torch
 
     b, h, kv, s, hd, dt, _ = shape
-    q = chip_smoke._randn(gen, (b, h, s, hd), getattr(torch, dt))
-    k, v = (chip_smoke._randn(gen, (b, kv, s, hd), getattr(torch, dt)) for _ in range(2))
+    q = kernel_table.randn(gen, (b, h, s, hd), getattr(torch, dt))
+    k, v = (kernel_table.randn(gen, (b, kv, s, hd), getattr(torch, dt)) for _ in range(2))
     return q, k, v
 
 
@@ -231,7 +237,7 @@ def sdpa_ms(q, k, v, window) -> float:
     if window > 0:
         i, j = torch.arange(s, device="cuda")[:, None], torch.arange(s, device="cuda")[None, :]
         mask = (j <= i) & (j > i - window)
-    return chip_smoke.time_ms(lambda: F.scaled_dot_product_attention(q, kr, vr, attn_mask=mask,
+    return kernel_table.time_ms(lambda: F.scaled_dot_product_attention(q, kr, vr, attn_mask=mask,
                                                                      is_causal=mask is None))
 
 
@@ -257,11 +263,11 @@ def compare(fns: dict) -> None:
         for label in labels if r % 2 == 0 else labels[::-1]:
             use(fns[label])
             for shape, (q, k, v) in args.items():
-                runs[label][str(shape)].append(chip_smoke.time_ms(lambda q=q, k=k, v=v: call(q, k, v, shape[-1])))
+                runs[label][str(shape)].append(kernel_table.time_ms(lambda q=q, k=k, v=v: call(q, k, v, shape[-1])))
     sdpa = {}
     for shape, (q, k, v) in args.items():
         sdpa[str(shape)] = sdpa_ms(q, k, v, shape[-1])
-        tc, by = chip_smoke.flash_tc_bound(q, k, None, True, shape[-1])
+        tc, by = kernel_table.flash_tc_bound(q, k, None, True, shape[-1])
         plan = plan_of(q, k, shape[-1])
         for label in labels:
             ms = runs[label][str(shape)]
@@ -270,7 +276,7 @@ def compare(fns: dict) -> None:
                   f"{sdpa[str(shape)]:.6f} ms (/SDPA {med / sdpa[str(shape)]:.3f}), tc bound {tc:.6f} ms ({by}, "
                   f"/tc_bound {med / tc:.3f}); current plan {plan}", flush=True)
     out = OUT_DIR / "runs.json"
-    out.write_text(json.dumps({"card": chip_smoke.card_line(), "variants": labels, "runs": runs, "sdpa_ms": sdpa},
+    out.write_text(json.dumps({"card": kernel_table.card_line(), "variants": labels, "runs": runs, "sdpa_ms": sdpa},
                               indent=1))
     print(f"every round's numbers: {out}", flush=True)
 
@@ -313,7 +319,7 @@ def models(fns: dict) -> None:
             for label in labels if r % 2 == 0 else labels[::-1]:
                 use(fns[label])
                 forward()
-                times[label].append(chip_smoke.time_ms(forward, reps=1, graphs=5))
+                times[label].append(kernel_table.time_ms(forward, reps=1, graphs=5))
         for label in labels:
             print(f"model {name} ({cfg.n_layers} layers) ({b},{s}) forward, replayed, {label}: median "
                   f"{statistics.median(times[label]):.4f} ms {[round(x, 4) for x in times[label]]}", flush=True)
@@ -331,8 +337,8 @@ def ablate(fns: dict) -> None:
         ms = {}
         for label, fn in fns.items():
             use(fn)
-            ms[label] = chip_smoke.time_ms(lambda: call(q, k, v, shape[-1]))
-        tc, by = chip_smoke.flash_tc_bound(q, k, None, True, shape[-1])
+            ms[label] = kernel_table.time_ms(lambda: call(q, k, v, shape[-1]))
+        tc, by = kernel_table.flash_tc_bound(q, k, None, True, shape[-1])
         print(f"ablate {shape}: kernel {ms['kernel']:.6f} ms, its loads alone {ms['loads']:.6f}, its split and "
               f"products alone {ms['products']:.6f}; tc bound {tc:.6f} ms ({by}); plan {plan_of(q, k, shape[-1])}",
               flush=True)
@@ -370,7 +376,7 @@ def plans(fn) -> None:
         times = []
         for plan in candidate_plans(shape):
             with planned(plan):
-                times.append((chip_smoke.time_ms(lambda: call(q, k, v, shape[-1])), plan))
+                times.append((kernel_table.time_ms(lambda: call(q, k, v, shape[-1])), plan))
         now = next(t for t, p in times if p == chosen)
         times.sort(key=lambda x: x[0])
         best = "; ".join(f"{t:.6f} ms ({p.route}, warps {p.warps}, stages {p.stages}, {p.heads}x{p.positions} rows)"
@@ -395,7 +401,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("flash_variants: no CUDA device is visible", file=sys.stderr)
         return 2
-    print(chip_smoke.card_line(), flush=True)
+    print(kernel_table.card_line(), flush=True)
 
     sources = {}
     for spec in args.variants:

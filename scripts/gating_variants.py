@@ -31,9 +31,8 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT))
 
-import chip_smoke  # noqa: E402  (puts src/ on the path)
+import kernel_table  # noqa: E402  (beside this script; puts src/ on the path)
 
 SHAPES = (8, 32, 256, 2048)
 E, K, ROUNDS = 128, 2, 5
@@ -88,7 +87,7 @@ def build(variants) -> dict[str, Path]:
         out, _ = proc.communicate()
         if proc.returncode != 0:
             raise SystemExit(f"nvcc failed to build {label}:\n{out}")
-        for fn, props in chip_smoke.ptxas_report(out):
+        for fn, props in kernel_table.ptxas_report(out):
             print(f"ptxas: {label}: {fn}: {props}", flush=True)
         libs[label] = lib
     return libs
@@ -108,7 +107,7 @@ def main() -> int:
     variants = [parse(a) for a in sys.argv[1:]]
     if not variants:
         raise SystemExit(__doc__)
-    print(chip_smoke.card_line(), flush=True)
+    print(kernel_table.card_line(), flush=True)
     entries = {}
     libs = build(variants)
     floor_fn = ctypes.CDLL(str(libs.pop("floor"))).floor_launch
@@ -158,17 +157,17 @@ def main() -> int:
                 else:
                     use(label)
                     fn, name = (lambda x=x: gating.moe_gating_cuda(x, K)), "moe_gating_kernel"
-                runs[label][t]["ms"].append(chip_smoke.time_ms(fn))
-                runs[label][t]["own_ms"].append(chip_smoke.own_ms(fn, name))
+                runs[label][t]["ms"].append(kernel_table.time_ms(fn))
+                runs[label][t]["own_ms"].append(kernel_table.own_ms(fn, name))
     for t in SHAPES:
-        bound, by = chip_smoke.gating_bound(inputs[t], K)
+        bound, by = kernel_table.gating_bound(inputs[t], K)
         for label in labels:
             ms, own = runs[label][t]["ms"], runs[label][t]["own_ms"]
             print(f"({t},{E}) k {K} f32 {label}: graph replay median {statistics.median(ms):.6f} ms "
                   f"{[round(v, 6) for v in ms]}, own duration median {statistics.median(own):.6f} ms "
                   f"{[round(v, 6) for v in own]}, bound {bound:.6f} ms ({by})", flush=True)
     out = OUT_DIR / "runs.json"
-    out.write_text(json.dumps({"card": chip_smoke.card_line(), "variants": sys.argv[1:], "runs": runs}, indent=1))
+    out.write_text(json.dumps({"card": kernel_table.card_line(), "variants": sys.argv[1:], "runs": runs}, indent=1))
     print(f"every round's numbers: {out}", flush=True)
     return 0
 

@@ -20,48 +20,14 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-import subprocess
 import sys
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT / "src"))
+import kernel_table  # beside this script; puts src/ on the path
 
 PRODUCTS = {"q/o": (4096, 4096), "k/v": (4096, 256), "gate/up": (4096, 13696),
             "down": (13696, 4096), "head": (4096, 151552)}
 SPLITS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64)
-
-
-def time_ms(fn, budget_ms: float = 30.0) -> float:
-    """One call's device time: enough calls to fill ~``budget_ms`` captured
-    in a CUDA graph, replayed three times between CUDA events."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    fn()
-    end.record()
-    end.synchronize()
-    reps = max(3, min(200, int(budget_ms / max(start.elapsed_time(end), 1e-3))))
-    stream = torch.cuda.Stream()
-    stream.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(stream):
-        fn()
-    torch.cuda.current_stream().wait_stream(stream)
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        for _ in range(reps):
-            fn()
-    g.replay()
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(3):
-        g.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / (3 * reps)
 
 
 def _label(plan) -> str:
@@ -78,8 +44,7 @@ def main() -> int:
     ap.add_argument("--products", default=",".join(PRODUCTS))
     ap.add_argument("--out", default="build/gemm_plans.json")
     args = ap.parse_args()
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True).stdout.strip()
+    card = kernel_table.card_line()
     print(f"card: {card}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     sms = _build.sm_count(torch.device("cuda"))
@@ -110,11 +75,11 @@ def main() -> int:
                 err = (got - want).abs().max().item() / scale
                 if err > 1e-5:
                     raise SystemExit(f"{name} m={m} {cand}: differs from the plan's output by {err:.3e}")
-                timings[_label(cand)] = time_ms(lambda c=cand: gemm.gemm_cuda(x, w, c))
+                timings[_label(cand)] = kernel_table.time_ms(lambda c=cand: gemm.gemm_cuda(x, w, c), reps=None, graphs=3)
             mine = timings[_label(plan)]
             best = min(timings, key=timings.get)
-            bytes_ms = gemm.weight_bytes_bound_s(n, k) * 1e3
-            work_ms = gemm.work_bound_s(m, n, k) * 1e3
+            bytes_ms = kernel_table.weight_bytes_bound_s(n, k) * 1e3
+            work_ms = kernel_table.work_bound_s(m, n, k) * 1e3
             tflops = gemm.flops(m, n, k) / mine / 1e9
             print(f"{name} M={m} (K {k}, N {n}): plan T{plan.tokens} S{plan.splits} st{plan.stages} "
                   f"{mine:.5f} ms ({tflops:.1f} TFLOP/s); best {best} {timings[best]:.5f} ms; "

@@ -4,12 +4,13 @@ recording costs, and readings of every span and counter.
     python3 scripts/trace_spans.py --workload glm4_9b.bimodal.r80 --seed 7 --pairs 1 \\
         --out build/trace_spans.json
 
-One set-up as a cell's run makes it (the seeded weights, the engine), with a
-``SpanLog`` on the executor through the Eq.-3 fit.  Then windows of the
-cell's traffic through the benchmark's own path (its ``CheckedExecutor``,
-the loop charging the scheduler's decisions), ``--pairs`` times in turns
-without and with a span log (off, on, on, off) and no device trace, and
-last one window with a span log under the device trace.  The windows share
+One set-up by the benchmark's own ``harness.setup`` (the seeded weights,
+the engine on the cell's ``engine`` settings), with a ``SpanLog`` on the
+executor through the Eq.-3 fit.  Then windows of the cell's traffic by
+``harness.window`` (its ``CheckedExecutor``, the loop charging the
+scheduler's decisions), ``--pairs`` times in turns without and with a span
+log on the executor and the loop (off, on, on, off) and no device trace,
+and last one window with a span log under the device trace.  The windows share
 the seed, so they serve the same arrivals.  Prints one JSON object a window
 and writes them all, with the set-up's readings and the cost of a span
 timed alone, to ``--out``.
@@ -27,8 +28,9 @@ The readings of a window with a log:
   beside ``device_idle`` and the idle time under each span name;
 - of the set-up, ``setup_fit_s`` (``engine.fit``) and ``kernels.build``;
 - of the set-up's graphs, the GEMM counter: each captured (k, bucket)
-  graph's GEMM launches over the forward's float32 weight products
-  (``gemm.weight_products``, 7 x 40 + 1 = 281 for GLM-4-9B), as a share.
+  graph's GEMM launches over the weight products its configuration's
+  family lists (``gemm_products``: 281 for GLM-4-9B, 420 for
+  Hymba-1.5B), as a share.
 
 Without a card it runs on the CPU (``--device cpu``, no traced window),
 where only the counts mean anything.
@@ -50,69 +52,35 @@ CHECKOUT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(CHECKOUT), str(CHECKOUT / "src")]
 
 
-def setup(cell, seed: int, device, log):
-    """``orloj_bench.harness.setup`` with ``log`` on the executor through the
-    fit → (engine, latency model)."""
-    from orloj_bench import harness
-    from orloj_bench.weights import make_weights, port_params
-    from repro_torch.serving.engine import EngineConfig, TorchServingEngine
-
-    w = make_weights(cell.config, seed, device)
-    engine = TorchServingEngine(harness.model_config(cell.config), EngineConfig(), seed=seed,
-                                device=device, params=port_params(cell.config, w))
-    engine.executor.spans = log
-    lm = engine.profile_latency_model()
-    engine.executor.spans = None
-    harness._sync(device)
-    return engine, lm
-
-
-def gemm_share(engine) -> dict:
+def gemm_share(cell, engine) -> dict:
     """The GEMM counter of each captured graph of the executor: its GEMM
-    launches, and their share of the forward's weight products."""
-    from repro_torch.kernels import gemm
+    launches, the weight products the family lists at its shape, and the
+    least share of them."""
+    from orloj_bench import families
 
-    products = gemm.weight_products(engine.model.cfg)
-    by_shape = {f"{k}x{b}": prog.launches.get("gemm", 0)
+    products = families.of(cell.config).gemm_products
+    by_shape = {f"{k}x{b}": (prog.launches.get("gemm", 0), len(products(cell.config, k, b)))
                 for (k, b), (_, prog) in sorted(engine.executor._shapes.items()) if prog.graph is not None}
-    return {"gemm_launches_by_graph": by_shape, "weight_products": products,
-            "gemm_share_min": 100.0 * min(by_shape.values(), default=0) / products}
+    return {"gemm_launches_and_products_by_graph": by_shape,
+            "gemm_share_min": min((100.0 * n / p for n, p in by_shape.values()), default=0.0)}
 
 
 def window(cell, engine, lm, seed: int, seconds: float, device, log, trace: bool):
-    """``orloj_bench.harness.window`` with ``log`` (or none) passed to the
-    executor and the loop → (run, checked executor, trace or None, wall s)."""
-    from orloj_bench import harness, traffic
-    from repro_torch.core.eventloop import Worker, run_event_loop
-    from repro_torch.launch.serve import make_scheduler
+    """``orloj_bench.harness.window`` with ``log`` (or none) on the executor
+    and the loop → (run, checked executor, wall s: the window's traffic
+    made, served and synchronised)."""
+    from orloj_bench import harness
 
-    buckets = engine.cfg.buckets
-    horizon = seconds * 1e3
-    stream = traffic.make_stream(cell.traffic, cell.mix, seed, horizon, buckets)
-    sched = make_scheduler("orloj", lm, stream.warm, engine.cfg.batch_sizes)
-    requests = harness.make_requests(stream, buckets)
-    exe = harness.CheckedExecutor(engine.executor, seed, cell.checks["sample"])
-    engine.executor.drain_measured()
     engine.executor.spans = log
-    harness._sync(device)
-    rec = None
-    if trace:
-        from orloj_bench.trace import Recorder
-
-        rec = Recorder()
     t0 = time.perf_counter()
-    sim = run_event_loop(requests, [Worker(sched, exe)], horizon=horizon,
-                         charge_scheduler_overhead=True,
-                         **({} if log is None else {"spans": log}))
-    harness._sync(device)
+    sim, requests, exe, tr = harness.window(cell, engine, lm, seed, seconds, trace, device, spans=log)
     wall = time.perf_counter() - t0
-    tr = rec.stop() if rec is not None else None
     engine.executor.spans = None
     slo = cell.traffic["slo_ms"]
     run = harness.Run(cell=cell, sim=sim, counted=harness.count(requests, sim.makespan_ms, slo),
                       t_end_ms=sim.makespan_ms, slo_ms=slo, batches=exe.batches, lm=lm,
                       setup_s=0.0, failed=set(), trace=tr)
-    return run, exe, tr, wall
+    return run, exe, wall
 
 
 def readings(run, exe, wall: float, log) -> dict:
@@ -207,19 +175,19 @@ def main(argv: list[str] | None = None) -> int:
            "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
            "span_cost": span_cost_ns(), "windows": []}
     fit_log = SpanLog()
-    engine, lm = setup(cell, args.seed, device, fit_log)
+    engine, lm, _ = harness.setup(cell, args.seed, device, spans=fit_log)
+    engine.executor.spans = None
     out["setup"] = {"setup_s": time.perf_counter() - T_START,
                     "setup_fit_s": fit_log.ns[ENGINE_FIT] / 1e9,
                     "captures": fit_log.calls[EXEC_CAPTURE],
                     "capture_s": fit_log.ns[EXEC_CAPTURE] / 1e9,
                     "nvcc_runs": _build.nvcc_runs, "nvcc_seconds": _build.nvcc_seconds,
-                    **gemm_share(engine)}
+                    **gemm_share(cell, engine)}
     print(json.dumps(out["setup"] | {"span_cost": out["span_cost"]}), flush=True)
     modes = ["off", "on", "on", "off"] * args.pairs + (["traced"] if device.type == "cuda" else [])
     for mode in modes:
         log = None if mode == "off" else SpanLog()
-        run, exe, _, wall = window(cell, engine, lm, args.seed, seconds, device, log,
-                                   mode == "traced")
+        run, exe, wall = window(cell, engine, lm, args.seed, seconds, device, log, mode == "traced")
         row = {"mode": mode} | readings(run, exe, wall, log)
         out["windows"].append(row)
         print(json.dumps(row), flush=True)

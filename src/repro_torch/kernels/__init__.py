@@ -11,8 +11,12 @@ Each kernel ships:
   DTensor sharding rules) and the public wrappers: CPU tensors take the
   plain version, CUDA (and meta) tensors the operator.
 
-The kernels: ``flash_attention``, ``decode_attention``, ``rmsnorm`` and
-``moe_gating``.  The wrappers are not re-exported here, so that
-``kernels.<name>`` stays the binding module; call them as
+The nine kernels (``_build.KERNELS``): the four of the TPU package,
+``flash_attention``, ``decode_attention``, ``rmsnorm`` and ``moe_gating``;
+the backwards of the three that training differentiates through,
+``flash_attention_bwd``, ``rmsnorm_bwd`` and ``moe_gating_bwd``; and two
+with no TPU counterpart, ``gemm`` (the float32 weight products) and
+``selective_scan`` (Mamba's scan).  The wrappers are not re-exported
+here, so that ``kernels.<name>`` stays the binding module; call them as
 ``kernels.ops.<name>``.
 """

@@ -268,21 +268,3 @@ def weight_products(cfg) -> int:
     two or three, a layer, and the head (none where it is tied)."""
     mlp = {"swiglu": 3, "none": 0}.get(cfg.mlp, 2)
     return cfg.n_layers * (4 + mlp) + (0 if cfg.tie_embeddings else 1)
-
-
-def weight_bytes_bound_s(n: int, k: int) -> float:
-    """The least time the card takes to read a (k, n) float32 weight once."""
-    return 4 * k * n / MEMORY_BYTES_PER_S
-
-
-def work_bound_s(m: int, n: int, k: int) -> float:
-    """The least time of the product's float32 work through three TF32
-    passes (165 TFLOP/s)."""
-    return flops(m, n, k) / (495e12 / 3)
-
-
-def bound_s(m: int, n: int, k: int) -> tuple[float, str]:
-    """The kernel's bound on this route, and which of the two sets it."""
-    b, w = weight_bytes_bound_s(n, k), work_bound_s(m, n, k)
-    return (b, "bytes") if b >= w else (w, "operations")
-

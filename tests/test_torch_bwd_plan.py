@@ -21,8 +21,8 @@ from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms  # noqa: E402
 
 SMS = 132
-# (rows, seq) of each training shape: the production grid's, chip_smoke's T1
-# (orloj_gpt (8, 256)) and T2 (GLM-4-9B (2, 1024)), and one row of 4096.
+# (rows, seq) of each training shape: the production grid's, the training
+# steps T1 (orloj_gpt (8, 256)) and T2 (GLM-4-9B (2, 1024)), and one row of 4096.
 TRAIN_SHAPES = [(SHAPES["train_4k"].global_batch, SHAPES["train_4k"].seq_len), (8, 256), (2, 1024), (1, 4096)]
 ATTENTION_ARCHS = [a for a in ARCHS if get_config(a).resolved_head_dim in fa.HEAD_DIMS]
 
@@ -132,7 +132,7 @@ def test_rmsnorm_backward_plan_covers_every_width_it_takes(element_size, aligned
 
 @pytest.mark.parametrize("arch", sorted(ARCHS))
 def test_rmsnorm_backward_plan_at_each_arch_width(arch):
-    """Each arch's width at chip_smoke's T2 rows (2048), with 16-byte vectors
+    """Each arch's width at the T2 step's rows (2048), with 16-byte vectors
     in float32 and in bf16: held in registers up to 8192 columns (256 threads
     of 32); Nemotron-4-340B's 18432 takes the rereading kernel."""
     d = get_config(arch).d_model

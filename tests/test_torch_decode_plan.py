@@ -35,7 +35,7 @@ from repro_torch.kernels import decode_attention as dec  # noqa: E402
 SMS = 132
 F32, BF16 = torch.float32, torch.bfloat16
 BATCHES = (1, 8, 128)
-# Cache lengths: S < one tile, chip_smoke's 256, 1024 (Hymba's ring), 4096,
+# Cache lengths: S < one tile, the kernel table's 256, 1024 (Hymba's ring), 4096,
 # decode_32k's 32,768 and long_500k's 8,192-slot window.
 SEQS = (7, 256, 1024, 4096, SHAPES["decode_32k"].seq_len, 8192)
 

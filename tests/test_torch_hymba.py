@@ -286,7 +286,9 @@ def _torch_scan(x, dt, bm, cm, z, a_log, d_skip):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,s,e", [(1, 1, 64), (2, 37, 96), (3, 300, 200), (8, 65, 3200), (1, 2176, 3200)])
+@pytest.mark.parametrize("b,s,e", [(1, 1, 64), (2, 37, 96), (3, 300, 200), (8, 65, 3200), (1, 2176, 3200),
+                                   (4, 2176, 3200),  # Hymba-1.5B's largest served batch
+                                   (8, 384, 3200), (8, 256, 1600)])  # its smallest bucket; the narrow preset
 def test_selective_scan_kernel_matches_the_torch_scan(cuda_device, b, s, e):
     from repro_torch.kernels import selective_scan as scan_mod
 
@@ -339,6 +341,12 @@ def test_mamba_on_the_card_always_takes_the_kernel(cuda_device):
         (2, 8, 2, 200, 64, torch.bfloat16, 48, 16, None),
         (1, 4, 2, 160, 192, torch.float32, 32, 40, None),  # the mma.sync route
         (2, 4, 4, 90, 16, torch.float32, 8, 3, [90, 41]),
+        (8, 25, 5, 256, 64, torch.float32, 1024, 0, None),  # Hymba's batch inside its window
+        (1, 25, 5, 2048, 64, torch.float32, 1024, 0, None),  # past its window
+        (1, 25, 5, 1100, 64, torch.float32, 1024, 0, [1100]),
+        (4, 25, 5, 2176, 64, torch.float32, 1024, 128, None),  # Hymba-1.5B's largest served batch
+        (2, 25, 5, 1300, 64, torch.float32, 1024, 128, [1300, 700]),
+        (2, 24, 2, 77, 192, torch.bfloat16, 30, 0, [77, 40]),  # head size 192, group of 12, a window
     ],
 )
 def test_flash_prefix_matches_plain(cuda_device, b, h, kv, s, hd, dtype, window, prefix, lengths):

@@ -194,7 +194,7 @@ def test_one_tf32_pass_misses_the_float32_tolerance(b, h, kv, s, hd):
                                         (2, 4, 4, 256, 512)])  # xLSTM-1.3B's head size 512
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_plain_matches_jax_ref(b, h, kv, s, hd, dtype):
-    """The plain version (chip_smoke's yardstick for the kernel) against the
+    """The plain version (the card tests' yardstick for the kernel) against the
     JAX reference and the Pallas kernel in the Pallas interpreter."""
     rng = np.random.default_rng(4)
     jq, tq = _pair(rng.normal(size=(b, h, hd)), dtype)
